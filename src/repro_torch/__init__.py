@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of `repro`: Ozaki-II CRT emulation of SGEMM/DGEMM/
+CGEMM/ZGEMM on int8 tensor cores, for one NVIDIA H100.
+
+This package imports torch and numpy, never JAX and nothing of `repro`.
+Its entry points are `repro_torch.linalg` (`matmul`, `sgemm`, `dgemm`,
+`cgemm`, `zgemm`) under a `GemmPolicy(execution="kernel")`, which runs the
+four hand-written Hopper kernels of `repro_torch.kernels`; they compute on
+the card unless the caller passes ``device="cpu"``.
+"""
+from . import linalg
+from .core.policy import GemmPolicy
+from .linalg import current_policy, use_policy
+
+__all__ = ["GemmPolicy", "current_policy", "linalg", "use_policy"]

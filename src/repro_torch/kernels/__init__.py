@@ -1,0 +1,20 @@
+"""The port's four Hopper kernels, each with its plain PyTorch version and
+a launch counter (`<wrapper>.launches`), and the kernel residue backend."""
+from . import crt_garner, int8_mod_gemm, karatsuba_fused, residue_cast
+
+#: the wrapper of each kernel, by the name of its CUDA source
+WRAPPERS = {
+    "residue_cast": residue_cast.residue_cast,
+    "int8_mod_gemm": int8_mod_gemm.int8_mod_gemm_batched,
+    "karatsuba_fused": karatsuba_fused.karatsuba_mod_gemm_batched,
+    "crt_garner": crt_garner.crt_garner,
+}
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}

@@ -1,0 +1,164 @@
+"""Garner mixed-radix CRT reconstruction + exact inverse scaling.
+
+Port of `repro.kernels.crt_garner`: the digit recursion is exact small
+integer arithmetic in f32, the digit -> value sum accumulates in a
+double-single (two-f32) pair against the prescaled weights W_t 2^-S, and
+the exact power-of-two inverse scaling C = C' / (mu_i nu_j) follows.
+Output is f32 (m, n), or the (2, m, n) double-single pair with `out_dd`
+(f64-shaped output); a (S, N, m, n) residue stack reconstructs S outputs
+sharing the scale exponents in one launch.
+
+On CUDA tensors `crt_garner` launches `csrc/crt_garner.cu`; on CPU tensors
+it runs `crt_garner_plain`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import numpy as np
+import torch
+
+from ..core import expansion as ex
+from ..core.moduli import CRTContext
+from . import build
+from .common import check_tensor, on_card, split_scale_exponent, sym_mod_f32
+
+
+def _prescale(ctx: CRTContext) -> int:
+    """Weight prescale S keeping W_t * 2^-S * 127 within f32 range."""
+    return max(0, math.ceil(ctx.log2_P) - 100)
+
+
+def _weight_table(ctx: CRTContext) -> np.ndarray:
+    """(N, 2) f32 double-single of W_t * 2^-S (exact power-of-two scaling)."""
+    s = _prescale(ctx)
+    tab = np.zeros((ctx.n, 2), dtype=np.float32)
+    W = 1
+    for t in range(ctx.n):
+        hi = np.float32(np.ldexp(float(W), -s))
+        lo = np.float32(np.ldexp(W - int(math.ldexp(float(np.float64(hi)), s)), -s))
+        tab[t, 0], tab[t, 1] = hi, lo
+        W *= ctx.moduli[t]
+    return tab
+
+
+def fma_f32(a: float, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c for f32 operands with ONE rounding, as a fused multiply-add.
+
+    Computed in float64: the product of the f32 weight `a` and the digit `b`
+    (|b| <= 127) is exact there, and for the operands of the Garner sum the
+    float64 add is exact as well (checked exhaustively for every weight and
+    digit in tests/test_torch_kernels.py), so the one rounding is the final
+    conversion to f32 — the bits of `__fmaf_rn` and of XLA's contraction.
+    """
+    return (c.double() + float(a) * b.double()).to(torch.float32)
+
+
+def garner_tile(planes, rr, cc, *, ctx, out_dd):
+    """Garner digits -> double-single value -> inverse scaling.
+
+    `planes` is a list of N f32 canonical residue tensors of C'; `rr`/`cc`
+    the broadcast-ready inverse-scale factor products.  Returns the f32
+    value, or the (hi, lo) double-single pair when `out_dd`.
+    """
+    moduli = ctx.moduli
+    n = ctx.n
+    # --- Garner digits (exact f32 integer arithmetic, all values < 2^17) ---
+    digits = []
+    for t in range(n):
+        pf, half = float(moduli[t]), float((moduli[t] - 1) // 2)
+        r = planes[t]
+        for s in range(t):
+            r = sym_mod_f32((r - digits[s]) * float(ctx.garner_inv[s, t]), pf, half)
+        digits.append(r)
+    # --- digits -> value, double-single accumulation, MS digit first ---
+    wt = _weight_table(ctx)
+    hi = torch.zeros_like(digits[0])
+    lo = torch.zeros_like(digits[0])
+    for t in range(n - 1, -1, -1):
+        w_hi = torch.tensor(wt[t, 0], dtype=torch.float32, device=hi.device)
+        ph, pe = ex.two_prod(w_hi, digits[t])
+        pe = fma_f32(wt[t, 1], digits[t], pe)  # reference crt_garner.py:89
+        hi, lo = ex.dd_add(hi, lo, ph, pe)
+    # --- exact inverse power-of-two scaling (folds in 2^S) ---
+    if out_dd:
+        return hi * rr * cc, lo * rr * cc
+    return ((hi + lo) * rr) * cc
+
+
+def _inverse_scales(e_mu, e_nu, ctx):
+    s = _prescale(ctx)
+    s_r = s // 2
+    r1, r2 = split_scale_exponent(-e_mu.to(torch.int64), bias=s_r)
+    c1, c2 = split_scale_exponent(-e_nu.to(torch.int64), bias=s - s_r)
+    return r1, r2, c1, c2
+
+
+def crt_garner_plain(e_res, e_mu, e_nu, ctx, *, out_dd):
+    """(S, N, m, n) int8 -> (S, m, n) f32 or (S, 2, m, n), in PyTorch."""
+    r1, r2, c1, c2 = _inverse_scales(e_mu, e_nu, ctx)
+    planes = [e_res[:, t].to(torch.float32) for t in range(ctx.n)]
+    rr = (r1 * r2)[:, None]
+    cc = (c1 * c2)[None, :]
+    out = garner_tile(planes, rr, cc, ctx=ctx, out_dd=out_dd)
+    return torch.stack(out, dim=1) if out_dd else out
+
+
+@functools.cache
+def _entry():
+    fn = build.library("crt_garner").crt_garner_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int] + [
+        ctypes.c_longlong] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(e_res, e_mu, e_nu, ctx, *, out_dd):
+    s, n_mod, m, n = e_res.shape
+    r1, r2, c1, c2 = _inverse_scales(e_mu, e_nu, ctx)
+    check_tensor("e_res", e_res, torch.int8, (s, ctx.n, m, n))
+    for name, t, length in (("r1", r1, m), ("r2", r2, m), ("c1", c1, n), ("c2", c2, n)):
+        check_tensor(name, t, torch.float32, (length,))
+    shape = (s, 2, m, n) if out_dd else (s, m, n)
+    out = torch.empty(shape, dtype=torch.float32, device=e_res.device)
+    mod_arr = np.ascontiguousarray(ctx.moduli, dtype=np.int32)
+    inv = np.ascontiguousarray(ctx.garner_inv, dtype=np.int32)
+    weights = np.ascontiguousarray(_weight_table(ctx))
+    status = _entry()(
+        e_res.data_ptr(), r1.data_ptr(), r2.data_ptr(), c1.data_ptr(), c2.data_ptr(),
+        out.data_ptr(), s, n_mod, m, n, int(out_dd),
+        mod_arr.ctypes.data, inv.ctypes.data, weights.ctypes.data,
+        torch.cuda.current_stream(e_res.device).cuda_stream,
+    )
+    build.check_launch("crt_garner", status)
+    crt_garner.launches += 1
+    return out
+
+
+def crt_garner(
+    e_res: torch.Tensor,
+    e_mu: torch.Tensor,
+    e_nu: torch.Tensor,
+    ctx: CRTContext,
+    *,
+    out_dd: bool = False,
+) -> torch.Tensor:
+    """e_res: (N, m, n) or stacked (S, N, m, n) int8 residues of C'; e_mu /
+    e_nu: integer scale exponents (shared across the stack).  Returns
+    C = C'/(mu nu) as (m, n) f32 or (2, m, n) double-single — with a leading
+    (S, ...) dim for stacked input — in one launch either way."""
+    stacked = e_res.ndim == 4
+    if not stacked:
+        e_res = e_res[None]
+    if e_res.shape[1] != ctx.n:
+        raise ValueError(f"e_res has {e_res.shape[1]} planes, the context {ctx.n}")
+    if on_card(e_res, e_mu, e_nu):
+        out = _launch(e_res, e_mu, e_nu, ctx, out_dd=out_dd)
+    else:
+        out = crt_garner_plain(e_res, e_mu, e_nu, ctx, out_dd=out_dd)
+    return out if stacked else out[0]
+
+
+crt_garner.launches = 0
