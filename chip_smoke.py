@@ -11,7 +11,7 @@ It imports torch, numpy and `repro_torch` only.  Inputs come from
 Any mismatch or exception ends the run with a non-zero exit; no phase's
 failure is caught.
 
-1. Build the four CUDA kernels from `src/repro_torch/kernels/csrc`, one
+1. Build the six CUDA kernels from `src/repro_torch/kernels/csrc`, one
    `nvcc` each, all at once.
 2. Hold each kernel against its plain PyTorch version on the card, bitwise
    (`torch.equal`): the chain scale -> cast (rows and columns, S = 1 or 2)
@@ -20,17 +20,35 @@ failure is caught.
    N = 14 complex).  Times each kernel and its plain version at the main
    path's shapes with CUDA events; for the two GEMM kernels also
    `torch._int_mm` over the same int8 planes, a product-only yardstick.
-3. End to end through `repro_torch.linalg` with
-   `GemmPolicy(execution="kernel")`:
-   (a) s/d/c/zgemm at 512^3, fast and accu: bitwise equal to the same call
-       with device="cpu", which runs the plain versions;
-   (b) the main path: s/d/c/zgemm at 4096^3 and zgemm at 8192^3, fast mode.
-       The launch counters are zeroed just before and read just after: each
-       GEMM is exactly 4 launches (cast, cast, product, reconstruct).  Times
-       beside native `torch.matmul` in the same dtype (cuBLAS); relative
-       error max|C - C_ref| / max|C_ref| against torch.matmul in
+   The two megakernels (`fused_mod_gemm`, `fused_karatsuba`) likewise: at
+   the ragged shape with chunk_limit = 256 (in-kernel K-chunk reductions),
+   f32 and double-single output, raw and prepared B; at 4096^3 (real N = 8
+   f32, complex N = 14 double-single) timed, with the 4-launch kernel
+   composition of the same GEMM timed beside as the yardstick and held
+   bitwise equal to the megakernel.
+3. End to end through `repro_torch.linalg`:
+   (a) s/d/c/zgemm at 512^3, fast and accu, on `GemmPolicy(execution=
+       "kernel")` and `execution="fused"` (complex also `block_a` and
+       `block_b`): bitwise equal to the same call with device="cpu", which
+       runs the plain versions;
+   (b) the kernel main path: s/d/c/zgemm at 4096^3 and zgemm at 8192^3,
+       fast mode, `execution="kernel"`.  The launch counters are zeroed
+       just before and read just after: each GEMM is exactly 4 launches
+       (cast, cast, product, reconstruct).  Times beside native
+       `torch.matmul` in the same dtype (cuBLAS); relative error
+       max|C - C_ref| / max|C_ref| against torch.matmul in
        float64/complex128 on the same operands must stay below 1e-4 (the
-       kernel path is f32-grade by design; phase 3(a) is the exactness check).
+       kernel path is f32-grade by design; phase 3(a) is the exactness
+       check);
+   (c) the fused main path: the same GEMMs on the same operands with
+       `execution="fused"`, counters zeroed before and read after: exactly
+       1 megakernel launch per GEMM, bitwise equal to (b)'s output, timed
+       beside (b) and cuBLAS, relative error below 1e-4.
+4. Prepared serving: `prepare_weights({"w": W})` of an 8192 x 8192 W
+   (complex128 and float32) on `fused` and on `kernel`, then three requests
+   of m = 128, 1024 and 8192 rows each: a fused request is 1 launch, a
+   kernel request 3 (cast, product, Garner), each bitwise equal to the
+   unprepared call of the same execution.  Prints each request's time.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit from nvidia-smi, and {"ok": true, "device": {...}}.
@@ -59,11 +77,16 @@ KERNELS = {
     "int8_mod_gemm": "src/repro/kernels/int8_mod_gemm.py:51",
     "karatsuba_fused": "src/repro/kernels/karatsuba_fused.py:60",
     "crt_garner": "src/repro/kernels/crt_garner.py:97",
+    "fused_mod_gemm": "src/repro/kernels/int8_mod_gemm.py:162",
+    "fused_karatsuba": "src/repro/kernels/karatsuba_fused.py:194",
 }
 RAGGED = (257, 1000, 129)  # (m, k, n) off every tile multiple
 MAIN = 4096                # the main path's m = n = k
 BIG = 8192                 # the largest zgemm of the main path
 SMALL = 512                # the card-vs-cpu end-to-end parity size
+RAGGED_CHUNK = 256         # chunk_limit forcing in-kernel reductions at RAGGED
+SERVE_N = 8192             # the prepared weight's k = n
+SERVE_M = (128, 1024, 8192)  # the rows of the serving requests
 
 
 def phi_matrix(rng, shape, phi, dtype):
@@ -144,6 +167,87 @@ class KernelChecks:
         self.record[name]["int_mm_ms"] = ms
         print(f"  {name}: torch._int_mm over the same {len(planes)} int8 products "
               f"(product-only yardstick) ms={ms:.4f}", flush=True)
+
+    def megakernels(self, shape, dtype, n_mod, *, chunk_limit, timed):
+        """The megakernel of `dtype` against its plain version, bitwise, with
+        raw and prepared B and f32 and double-single output, and against the
+        4-launch kernel composition of the same GEMM.  With `timed`, the main
+        path's variant (raw B; double-single for complex) is timed beside its
+        plain version and that composition (the yardstick)."""
+        from repro_torch.core import scaling
+        from repro_torch.core.moduli import make_crt_context
+        from repro_torch.core.plan import n_limbs_for_ctx
+        from repro_torch.kernels.common import split_scale_exponent
+
+        rc, ig, kf, cg = self.mods
+        m, k, n = shape
+        ctx = make_crt_context(n_mod)
+        nl = n_limbs_for_ctx(ctx)
+        mods = ctx.moduli
+        a = torch.from_numpy(phi_matrix(self.rng, (m, k), PHI, dtype)).to(self.dev)
+        b = torch.from_numpy(phi_matrix(self.rng, (k, n), PHI, dtype)).to(self.dev)
+        complex_ = a.is_complex()
+        if complex_:
+            e_mu, e_nu = scaling.scale_fast_complex(a.real, a.imag, b.real, b.imag, ctx)
+            xa = torch.stack([a.real, a.imag]).float()
+            xb = torch.stack([b.real, b.imag]).float()
+        else:
+            e_mu, e_nu = scaling.scale_fast_real(a, b, ctx)
+            xa, xb = a.float()[None], b.float()[None]
+        sa, sb = split_scale_exponent(e_mu), split_scale_exponent(e_nu)
+        cast = dict(moduli=mods, n_limbs=nl)
+        planes = rc.residue_cast(xb, *sb, scale_axis=1, **cast)  # prepared B
+        name = "fused_karatsuba" if complex_ else "fused_mod_gemm"
+        label = f"{m}x{k}x{n} N={n_mod} {'complex' if complex_ else 'real'}"
+
+        def composed(out_dd):
+            """The same GEMM as cast, cast, product, Garner: 4 launches."""
+            ares = rc.residue_cast(xa, *sa, scale_axis=0, **cast)
+            bres = rc.residue_cast(xb, *sb, scale_axis=1, **cast)
+            if complex_:
+                e_res = torch.stack(kf.karatsuba_mod_gemm_batched(
+                    ares[0], ares[1], bres[0], bres[1], moduli=mods))
+            else:
+                e_res = ig.int8_mod_gemm_batched(ares[0], bres[0], moduli=mods)[None]
+            out = cg.crt_garner(e_res, e_mu, e_nu, ctx, out_dd=out_dd)
+            return (out[0], out[1]) if complex_ else out[0]
+
+        for out_dd in (False, True):
+            for prepared in (False, True):
+                main = not prepared and out_dd == complex_
+                if timed and not main:
+                    continue
+                kw = dict(n_limbs=nl, out_dd=out_dd, chunk_limit=chunk_limit)
+                if complex_:
+                    rhs = (None, None) if prepared else (xb[0], xb[1])
+                    kw["b_res"] = (planes[0], planes[1]) if prepared else None
+                    kernel = lambda: kf.fused_karatsuba_mod_gemm(xa[0], xa[1], *rhs, e_mu, e_nu, ctx, **kw)  # noqa: E731
+                    plain = lambda: kf.fused_karatsuba_mod_gemm_plain(xa[0], xa[1], *rhs, e_mu, e_nu, ctx, **kw)  # noqa: E731
+                    ops = 3 * 2 * n_mod * m * n * k
+                    b_bytes = 2 * (n_mod * k * n if prepared else 4 * k * n)
+                    nbytes = 2 * 4 * m * k + b_bytes + 2 * (8 if out_dd else 4) * m * n
+                else:
+                    rhs = None if prepared else xb[0]
+                    kw["b_res"] = planes[0] if prepared else None
+                    kernel = lambda: ig.fused_mod_gemm(xa[0], rhs, e_mu, e_nu, ctx, **kw)  # noqa: E731
+                    plain = lambda: ig.fused_mod_gemm_plain(xa[0], rhs, e_mu, e_nu, ctx, **kw)  # noqa: E731
+                    ops = 2 * n_mod * m * n * k
+                    b_bytes = n_mod * k * n if prepared else 4 * k * n
+                    nbytes = 4 * m * k + b_bytes + (8 if out_dd else 4) * m * n
+                t = None
+                if timed:
+                    t = (f"{label} out_dd={out_dd}", nbytes + 16 * (m + n), ops, INT8_OPS_S, 3)
+                got = self.compare(name, kernel, plain, timed=t)
+                if not prepared:
+                    want = composed(out_dd)
+                    pairs = zip(got, want) if complex_ else [(got, want)]
+                    if not all(torch.equal(g, w) for g, w in pairs):
+                        raise AssertionError(f"{name} {label}: the megakernel differs from the 4-launch composition")
+                if timed:
+                    ms = cuda_ms(lambda: composed(out_dd), 3)
+                    self.record[name]["kernel_path_ms"] = ms
+                    print(f"  {name}: the same GEMM as 4 launches (cast, cast, product, Garner; "
+                          f"the yardstick) ms={ms:.4f}", flush=True)
 
     def chain(self, shape, dtype, n_mod, timed):
         from repro_torch.core import scaling
@@ -253,62 +357,147 @@ def end_to_end_cpu_parity(rng, dev, GemmPolicy, linalg):
     for routine, dtype in ROUTINES.items():
         a = phi_matrix(rng, (SMALL, SMALL), PHI, dtype)
         b = phi_matrix(rng, (SMALL, SMALL), PHI, dtype)
-        for mode in ("fast", "accu"):
-            pol = GemmPolicy(execution="kernel", mode=mode)
+        cases = [(ex, mode, "karatsuba") for ex in ("kernel", "fused") for mode in ("fast", "accu")]
+        if np.issubdtype(dtype, np.complexfloating):
+            cases += [("fused", "fast", "block_a"), ("fused", "fast", "block_b")]
+        for execution, mode, formulation in cases:
+            pol = GemmPolicy(execution=execution, mode=mode, formulation=formulation)
             on_card = getattr(linalg, routine)(a, b, policy=pol)
             on_cpu = getattr(linalg, routine)(a, b, policy=pol, device="cpu")
+            what = f"{routine} {execution} {mode} {formulation if on_cpu.is_complex() else 'real'} {SMALL}^3"
             if on_card.device.type != dev.type or not torch.equal(on_card.cpu(), on_cpu):
-                raise AssertionError(f"{routine} {mode} {SMALL}^3: the card differs from device='cpu'")
-            print(f"  {routine} {mode} {SMALL}^3: card == cpu, bitwise", flush=True)
+                raise AssertionError(f"{what}: the card differs from device='cpu'")
+            print(f"  {what}: card == cpu, bitwise", flush=True)
+
+
+def rel_error(y, a, b):
+    """max|C - C_ref| / max|C_ref| against torch.matmul in float64/complex128."""
+    wide = torch.complex128 if a.is_complex() else torch.float64
+    ref = torch.matmul(a.to(wide), b.to(wide))
+    return float((y.to(wide) - ref).abs().max() / ref.abs().max())
+
+
+def timed_calls(fn, reps):
+    """(last result, mean host-clock ms) of `reps` calls ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        y = fn()
+    torch.cuda.synchronize()
+    return y, (time.perf_counter() - t0) / reps * 1e3
+
+
+def check_launches(kernels, before, expect, calls, what):
+    delta = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+    want = {k: expect.get(k, 0) * calls for k in delta}
+    if delta != want:
+        raise AssertionError(f"{what}: launches {delta} for {calls} GEMMs, expected {want}")
 
 
 def main_path(rng, dev, GemmPolicy, linalg, kernels):
-    """Phase 3(b): the main path, with the launch counters."""
-    expect_real = {"residue_cast": 2, "int8_mod_gemm": 1, "karatsuba_fused": 0, "crt_garner": 1}
-    expect_complex = {"residue_cast": 2, "int8_mod_gemm": 0, "karatsuba_fused": 1, "crt_garner": 1}
+    """Phase 3(b): the kernel main path, with the launch counters.  Returns
+    the counts and each run's operands, output and times for phase 3(c)."""
+    expect_real = {"residue_cast": 2, "int8_mod_gemm": 1, "crt_garner": 1}
+    expect_complex = {"residue_cast": 2, "karatsuba_fused": 1, "crt_garner": 1}
     runs = [(routine, dtype, MAIN) for routine, dtype in ROUTINES.items()]
     runs.append(("zgemm", np.complex128, BIG))
     pol = GemmPolicy(execution="kernel", mode="fast")
-    operands = []
+    results = []
     for routine, dtype, size in runs:
         a = torch.from_numpy(phi_matrix(rng, (size, size), PHI, dtype)).to(dev)
         b = torch.from_numpy(phi_matrix(rng, (size, size), PHI, dtype)).to(dev)
-        operands.append((a, b))
+        results.append({"routine": routine, "size": size, "a": a, "b": b})
     torch.cuda.synchronize()
 
     kernels.reset_launches()
-    for (routine, dtype, size), (a, b) in zip(runs, operands):
+    for r in results:
+        routine, size, a, b = r["routine"], r["size"], r["a"], r["b"]
         fn = getattr(linalg, routine)
         reps = 3 if size < BIG else 1
         before = kernels.launch_counts()
-        y = fn(a, b, policy=pol)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            y = fn(a, b, policy=pol)
-        torch.cuda.synchronize()
-        emu_ms = (time.perf_counter() - t0) / reps * 1e3
-        calls = 1 + reps
-        expect = expect_complex if a.is_complex() else expect_real
-        delta = {k: v - before[k] for k, v in kernels.launch_counts().items()}
-        if delta != {k: v * calls for k, v in expect.items()}:
-            raise AssertionError(f"{routine} {size}^3: launches {delta} for {calls} GEMMs, expected 4 each")
+        fn(a, b, policy=pol)
+        y, emu_ms = timed_calls(lambda: fn(a, b, policy=pol), reps)
+        check_launches(kernels, before, expect_complex if a.is_complex() else expect_real,
+                       1 + reps, f"{routine} {size}^3")
         native_ms = cuda_ms(lambda: torch.matmul(a, b), reps)
-        wide = torch.complex128 if a.is_complex() else torch.float64
-        ref = torch.matmul(a.to(wide), b.to(wide))
-        rel = float((y.to(wide) - ref).abs().max() / ref.abs().max())
-        del ref
+        rel = rel_error(y, a, b)
         flops = (8 if a.is_complex() else 2) * size**3
+        r.update(y=y, kernel_ms=emu_ms, native_ms=native_ms, flops=flops)
         print(f"  {routine} {size}^3 fast: emulated_ms={emu_ms:.3f} ({flops / emu_ms / 1e9:.2f} TFLOPS) "
               f"torch.matmul_ms={native_ms:.3f} ({flops / native_ms / 1e9:.2f} TFLOPS) "
               f"speedup={native_ms / emu_ms:.3f} rel_err={rel:.3e} launches/GEMM=4", flush=True)
         if not rel < 1e-4:
             raise AssertionError(f"{routine} {size}^3: relative error {rel} >= 1e-4")
     counts = kernels.launch_counts()
-    for name, n in counts.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    for name in ("residue_cast", "int8_mod_gemm", "karatsuba_fused", "crt_garner"):
+        if counts[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the kernel main path")
+    return counts, results
+
+
+def fused_main_path(results, GemmPolicy, linalg, kernels):
+    """Phase 3(c): the same GEMMs on the fused execution: 1 launch each,
+    bitwise equal to the kernel execution's output."""
+    pol = GemmPolicy(execution="fused", mode="fast")
+    kernels.reset_launches()
+    for r in results:
+        routine, size, a, b = r["routine"], r["size"], r["a"], r["b"]
+        fn = getattr(linalg, routine)
+        reps = 3 if size < BIG else 1
+        before = kernels.launch_counts()
+        first = fn(a, b, policy=pol)
+        y, ms = timed_calls(lambda: fn(a, b, policy=pol), reps)
+        expect = {"fused_karatsuba" if a.is_complex() else "fused_mod_gemm": 1}
+        check_launches(kernels, before, expect, 1 + reps, f"fused {routine} {size}^3")
+        if not (torch.equal(first, r["y"]) and torch.equal(y, r["y"])):
+            raise AssertionError(f"fused {routine} {size}^3: differs from the kernel execution")
+        rel = rel_error(y, a, b)
+        flops = r["flops"]
+        print(f"  {routine} {size}^3 fast fused: emulated_ms={ms:.3f} ({flops / ms / 1e9:.2f} TFLOPS) "
+              f"kernel_execution_ms={r['kernel_ms']:.3f} torch.matmul_ms={r['native_ms']:.3f} "
+              f"speedup_vs_cublas={r['native_ms'] / ms:.3f} rel_err={rel:.3e} launches/GEMM=1 "
+              f"== kernel execution, bitwise", flush=True)
+        if not rel < 1e-4:
+            raise AssertionError(f"fused {routine} {size}^3: relative error {rel} >= 1e-4")
+    counts = kernels.launch_counts()
+    for name in ("fused_mod_gemm", "fused_karatsuba"):
+        if counts[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the fused main path")
     return counts
+
+
+def serving(rng, dev, GemmPolicy, linalg, kernels):
+    """Phase 4: prepared-weight serving on the fused and kernel executions."""
+    expect = {
+        ("fused", True): {"fused_karatsuba": 1},
+        ("fused", False): {"fused_mod_gemm": 1},
+        ("kernel", True): {"residue_cast": 1, "karatsuba_fused": 1, "crt_garner": 1},
+        ("kernel", False): {"residue_cast": 1, "int8_mod_gemm": 1, "crt_garner": 1},
+    }
+    for routine, dtype in (("zgemm", np.complex128), ("sgemm", np.float32)):
+        w = torch.from_numpy(phi_matrix(rng, (SERVE_N, SERVE_N), PHI, dtype)).to(dev)
+        xs = [torch.from_numpy(phi_matrix(rng, (m, SERVE_N), PHI, dtype)).to(dev) for m in SERVE_M]
+        fn = getattr(linalg, routine)
+        for execution in ("fused", "kernel"):
+            pol = GemmPolicy(backend=linalg.BACKEND_FOR_DTYPE[np.dtype(dtype).name],
+                             execution=execution, mode="fast")
+            t0 = time.perf_counter()
+            prepared = linalg.prepare_weights({"w": w}, pol)["w"]
+            torch.cuda.synchronize()
+            prep_ms = (time.perf_counter() - t0) * 1e3
+            print(f"  {routine} W {SERVE_N}x{SERVE_N} {execution}: prepare_weights ms={prep_ms:.3f}", flush=True)
+            fn(xs[0], prepared, policy=pol)  # warm-up
+            for x in xs:
+                before = kernels.launch_counts()
+                y, ms = timed_calls(lambda: fn(x, prepared, policy=pol), 1)
+                check_launches(kernels, before, expect[execution, w.is_complex()], 1,
+                               f"{routine} {execution} prepared m={x.shape[0]}")
+                direct, direct_ms = timed_calls(lambda: fn(x, w, policy=pol), 1)
+                if not torch.equal(y, direct):
+                    raise AssertionError(f"{routine} {execution} m={x.shape[0]}: prepared differs from unprepared")
+                print(f"  {routine} {execution} request m={x.shape[0]}: prepared_ms={ms:.3f} "
+                      f"unprepared_ms={direct_ms:.3f} launches={sum(expect[execution, w.is_complex()].values())} "
+                      f"== unprepared, bitwise", flush=True)
 
 
 def main() -> int:
@@ -340,15 +529,28 @@ def main() -> int:
     checks.chain(RAGGED, np.complex64, 14, timed=False)
     checks.chain((MAIN, MAIN, MAIN), np.float32, 8, timed=True)
     checks.chain((MAIN, MAIN, MAIN), np.complex128, 14, timed=True)
+    checks.megakernels(RAGGED, np.float32, 8, chunk_limit=RAGGED_CHUNK, timed=False)
+    checks.megakernels(RAGGED, np.complex64, 14, chunk_limit=RAGGED_CHUNK, timed=False)
+    checks.megakernels((MAIN, MAIN, MAIN), np.float32, 8, chunk_limit=1 << 17, timed=True)
+    checks.megakernels((MAIN, MAIN, MAIN), np.complex128, 14, chunk_limit=1 << 17, timed=True)
     torch.cuda.synchronize()
-    print("  all four kernels equal their plain versions", flush=True)
+    print(f"  all {len(KERNELS)} kernels equal their plain versions", flush=True)
 
     print(f"phase 3a: {SMALL}^3 end to end, card vs device='cpu'", flush=True)
     end_to_end_cpu_parity(rng, dev, GemmPolicy, linalg)
 
-    print("phase 3b: main path", flush=True)
-    counts = main_path(rng, dev, GemmPolicy, linalg, kernels)
-    print(f"  main-path launches: {counts}", flush=True)
+    print("phase 3b: kernel main path", flush=True)
+    counts, results = main_path(rng, dev, GemmPolicy, linalg, kernels)
+    print(f"  kernel main-path launches: {counts}", flush=True)
+
+    print("phase 3c: fused main path", flush=True)
+    fused_counts = fused_main_path(results, GemmPolicy, linalg, kernels)
+    print(f"  fused main-path launches: {fused_counts}", flush=True)
+    del results
+    torch.cuda.empty_cache()
+
+    print("phase 4: prepared serving", flush=True)
+    serving(rng, dev, GemmPolicy, linalg, kernels)
 
     record = []
     for name, replaces in KERNELS.items():
@@ -358,7 +560,7 @@ def main() -> int:
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": counts[name],
+            "launches": (fused_counts if name.startswith("fused") else counts)[name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -366,6 +568,7 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": None,
             "int_mm_ms": r.get("int_mm_ms"),
+            "kernel_path_ms": r.get("kernel_path_ms"),
             "shape": r["shape"],
         })
     print(json.dumps({"kernels": record}), flush=True)

@@ -3,9 +3,11 @@ CGEMM/ZGEMM on int8 tensor cores, for one NVIDIA H100.
 
 This package imports torch and numpy, never JAX and nothing of `repro`.
 Its entry points are `repro_torch.linalg` (`matmul`, `sgemm`, `dgemm`,
-`cgemm`, `zgemm`) under a `GemmPolicy(execution="kernel")`, which runs the
-four hand-written Hopper kernels of `repro_torch.kernels`; they compute on
-the card unless the caller passes ``device="cpu"``.
+`cgemm`, `zgemm`, and `prepare_weights` for serving) under a
+`GemmPolicy(execution="kernel")`, which runs four hand-written Hopper
+kernels, or `GemmPolicy(execution="fused")`, which runs one of two
+megakernels per GEMM (`repro_torch.kernels`); they compute on the card
+unless the caller passes ``device="cpu"``.
 """
 from . import linalg
 from .core.policy import GemmPolicy

@@ -4,21 +4,38 @@ The port's copy of the kernel-path part of `repro.core.executor`:
 
     scale -> residue cast -> residue GEMMs -> Garner reconstruct
 
-parameterized by an :class:`EmulationPlan` and a residue backend (the
-kernel backend, `repro_torch.kernels.ops.KernelBackend`) supplying
-`cast_stack`, `residue_matmul`, `karatsuba` and `reconstruct_stack`.  The
-two block-embedding formulations (paper eqs. 7/8) are composed here from
-`residue_matmul`, so all three Fig. 1 strategies run on the kernels.
-`run_plan` batches over leading operand dims with a loop written out where
-the reference uses `jnp.vectorize`.
+parameterized by an :class:`EmulationPlan` and a residue backend supplying
+`cast_stack`, `residue_matmul`, `karatsuba` and `reconstruct_stack` (the
+kernel backend, `repro_torch.kernels.ops.KernelBackend`).  The two
+block-embedding formulations (paper eqs. 7/8) are composed here from
+`residue_matmul`, so all three Fig. 1 strategies run on the kernels.  A
+backend with ``megakernel = True`` (`FusedBackend`) runs the whole chain as
+one `fused_gemm` / `fused_karatsuba_gemm` launch per output-column block
+instead.  `run_plan` batches over leading operand dims with a loop written
+out where the reference uses `jnp.vectorize`.
+
+Prepared serving: :class:`PreparedOperand` casts a reused operand once and
+`gemm_prepared` multiplies by it.
 """
 from __future__ import annotations
 
 import torch
 
 from . import scaling
-from .moduli import K_CHUNK_LIMIT
-from .plan import EmulationPlan
+from .intmul import int8_matmul
+from .moduli import K_CHUNK_LIMIT, CRTContext, make_crt_context
+from .plan import EmulationPlan, default_n_moduli, dtype_name, make_plan, n_limbs_for_ctx
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point computes on: `device`, else the card."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the emulated GEMM runs on the card; pass "
+            "device='cpu' to run the kernels' plain PyTorch versions"
+        )
+    return device
 
 
 def chunked_residue_matmul(mod_gemm_stack, ares, bres, chunk_limit: int | None = None):
@@ -129,12 +146,96 @@ def _blocked_pipeline_complex(plan, backend, ctx, e_mu, arr, ari, e_nu, bres_sli
     return blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)
 
 
+def _fused_pipeline_real(plan, backend, ctx, e_mu, a, e_nu, b_slice, b_res_slice, n):
+    """Real pipeline on a megakernel backend: ONE `fused_gemm` launch per
+    output-column block.  `b_slice(sl)` yields the raw B block, or
+    `b_res_slice(sl)` the pre-cast (N, k, n_blk) planes of a prepared
+    operand."""
+    blocks = []
+    for sl in plan.n_block_slices(n):
+        if b_res_slice is not None:
+            out = backend.fused_gemm(a, None, e_mu, e_nu[sl], ctx, plan.n_limbs,
+                                     plan.real_out_dtype, b_res=b_res_slice(sl))
+        else:
+            out = backend.fused_gemm(a, b_slice(sl), e_mu, e_nu[sl], ctx, plan.n_limbs,
+                                     plan.real_out_dtype)
+        blocks.append(out)
+    return blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)
+
+
+def _fused_complex_block(backend, plan, ctx, e_mu, ar, ai, e_nu_sl, b_blk, b_res_blk, nl, rdt):
+    """One output-column block of the fused complex pipeline -> (cr, ci).
+
+    'karatsuba' runs the complex megakernel.  The block embeddings (paper
+    eqs. 7/8) embed the RAW operands (or, prepared, the int8 residue
+    planes) and run the real megakernel once: the residue cast commutes
+    bitwise with negation (trunc and round are symmetric), so cast(-AI)
+    equals the composed path's negated int8 planes exactly.
+    """
+    if plan.formulation == "karatsuba":
+        if b_res_blk is not None:
+            return backend.fused_karatsuba_gemm(ar, ai, None, None, e_mu, e_nu_sl, ctx, nl, rdt,
+                                                b_res=b_res_blk)
+        return backend.fused_karatsuba_gemm(ar, ai, b_blk[0], b_blk[1], e_mu, e_nu_sl, ctx, nl, rdt)
+    if plan.formulation == "block_a":
+        # eq. (7): [[AR,-AI],[AI,AR]] @ [BR;BI] = [CR;CI]
+        ahat = torch.cat([torch.cat([ar, -ai], dim=-1), torch.cat([ai, ar], dim=-1)], dim=-2)
+        ehat = torch.cat([e_mu, e_mu])
+        if b_res_blk is not None:
+            chat = backend.fused_gemm(ahat, None, ehat, e_nu_sl, ctx, nl, rdt,
+                                      b_res=torch.cat(b_res_blk, dim=-2))
+        else:
+            chat = backend.fused_gemm(ahat, torch.cat(b_blk, dim=-2), ehat, e_nu_sl, ctx, nl, rdt)
+        m = ar.shape[-2]
+        return chat[..., :m, :], chat[..., m:, :]
+    if plan.formulation == "block_b":
+        # eq. (8): [AI,AR] @ [[BR,-BI],[BI,BR]] = [CI,CR]
+        ahat = torch.cat([ai, ar], dim=-1)
+        ehat_nu = torch.cat([e_nu_sl, e_nu_sl])
+        xr, xi = b_res_blk if b_res_blk is not None else b_blk
+        bhat = torch.cat([torch.cat([xr, xi], dim=-2), torch.cat([-xi, xr], dim=-2)], dim=-1)
+        if b_res_blk is not None:
+            chat = backend.fused_gemm(ahat, None, e_mu, ehat_nu, ctx, nl, rdt, b_res=bhat)
+        else:
+            chat = backend.fused_gemm(ahat, bhat, e_mu, ehat_nu, ctx, nl, rdt)
+        n = chat.shape[-1] // 2
+        return chat[..., :, n:], chat[..., :, :n]
+    raise ValueError(f"unknown formulation {plan.formulation!r}")
+
+
+def _fused_pipeline_complex(plan, backend, ctx, e_mu, ar, ai, e_nu, b_slice, b_res_slice, n):
+    """Complex pipeline on a megakernel backend: one launch per block."""
+    blocks = []
+    for sl in plan.n_block_slices(n):
+        b_blk = None if b_res_slice is not None else b_slice(sl)
+        b_res_blk = b_res_slice(sl) if b_res_slice is not None else None
+        cr, ci = _fused_complex_block(backend, plan, ctx, e_mu, ar, ai, e_nu[sl], b_blk,
+                                      b_res_blk, plan.n_limbs, plan.real_out_dtype)
+        blocks.append(torch.complex(cr, ci))
+    return blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)
+
+
+def _megakernel(backend) -> bool:
+    return getattr(backend, "megakernel", False)
+
+
 def _execute_real(plan, a, b, backend):
     ctx = plan.ctx
     if plan.mode == "fast":
         e_mu, e_nu = scaling.scale_fast_real(a, b, ctx)
     else:
         e_mu, e_nu = scaling.scale_accurate_real(a, b, ctx)
+    return _pipeline_real(plan, backend, ctx, e_mu, a, e_nu, b)
+
+
+def _pipeline_real(plan, backend, ctx, e_mu, a, e_nu, b):
+    """Everything after the scaling, on raw operands: one megakernel launch
+    per block, or cast -> product -> reconstruct."""
+    if _megakernel(backend):
+        # fast AND accu mode: the scaling runs outside the kernels, so the
+        # whole emulated GEMM is the megakernel's single launch per block
+        return _fused_pipeline_real(plan, backend, ctx, e_mu, a, e_nu, lambda sl: b[:, sl], None,
+                                    b.shape[1])
     nl = plan.n_limbs
     ares = backend.cast(a, e_mu, 0, ctx, nl)
     return _blocked_pipeline_real(
@@ -152,12 +253,20 @@ def _execute_complex(plan, a, b, backend):
         e_mu, e_nu = scaling.scale_fast_complex(ar, ai, br, bi, ctx)
     else:
         e_mu, e_nu = scaling.scale_accurate_complex(ar, ai, br, bi, ctx)
+    return _pipeline_complex(plan, backend, ctx, e_mu, ar, ai, e_nu, br, bi)
+
+
+def _pipeline_complex(plan, backend, ctx, e_mu, ar, ai, e_nu, br, bi):
+    """Complex twin of `_pipeline_real`."""
+    if _megakernel(backend):
+        return _fused_pipeline_complex(plan, backend, ctx, e_mu, ar, ai, e_nu,
+                                       lambda sl: (br[:, sl], bi[:, sl]), None, br.shape[1])
     nl = plan.n_limbs
     arr, ari = _cast_pair(backend, ar, ai, e_mu, 0, ctx, nl)
     return _blocked_pipeline_complex(
         plan, backend, ctx, e_mu, arr, ari, e_nu,
         lambda sl: _cast_pair(backend, br[:, sl], bi[:, sl], e_nu[sl], 1, ctx, nl),
-        b.shape[1],
+        br.shape[1],
     )
 
 
@@ -173,14 +282,285 @@ def run_plan(plan: EmulationPlan, a, b, backend):
     return torch.stack(outs).reshape(*batch, *outs[0].shape)
 
 
-class PreparedOperand:
-    """Weights cast once up front, for serving (`repro.core.PreparedOperand`).
+# ====================================================== prepared operands
 
-    Not ported yet: ROADMAP queue 1, 'PreparedOperand / prepare_weights'.
+
+def _kernel_backend():
+    from ..kernels.ops import KernelBackend  # the kernels import this module
+
+    return KernelBackend()
+
+
+class PreparedOperand:
+    """One-time residue cast of a reused operand (port of
+    `repro.core.executor.PreparedOperand`).
+
+    Weight-stationary serving (Y = X_i @ W) and repeated applications of a
+    fixed operand pay step 1 of the scheme (scaling, truncation, N residue
+    planes) once.  The fast (Cauchy-Schwarz) scaling of one operand does
+    not depend on the other, so `gemm_prepared` is bitwise equal to the
+    direct fast-mode pipeline.
+
+    Accurate mode (``keep_raw=True``, done by `prepare_weights` for accu
+    policies) stores the per-row/column 7-bit bound (`bound`/`e_bound`,
+    paper eqs. 13-14) and the raw operand instead of planes: the accurate
+    exponents couple both operands, so the planes are re-cast per call.
+
+    Fields, as in the reference: `side` ('left' prepares A row-wise,
+    'right' B column-wise), `n_moduli`, `n_limbs`, `dtype` (a name),
+    `e_scale`, `residues` (one plane stack, or the real/imag pair),
+    `bound`, `e_bound` and `raw`.  Leading batch dims of `x` are prepared
+    one matrix at a time and stacked.
+
+    `backend` runs the residue cast; None means the kernel backend, whose
+    f32 cast every port execution shares (the port has no `reference`
+    execution yet).  `device`: where the operand and its planes live; None
+    means the card, as for the `linalg` entry points.
     """
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "PreparedOperand is not ported yet (ROADMAP queue 1, "
-            "'PreparedOperand / prepare_weights'); pass raw weights"
+    def __init__(self, x, n_moduli: int | None = None, side: str = "left", backend=None,
+                 keep_raw: bool = False, device=None):
+        if side not in ("left", "right"):
+            raise ValueError(side)
+        if backend is None:
+            backend = _kernel_backend()
+        x = torch.as_tensor(x, device=resolve_device(device))
+        dt = dtype_name(x.dtype)
+        if n_moduli is None:
+            n_moduli = default_n_moduli(dt, "fast")
+        n_moduli = int(n_moduli)
+        ctx = make_crt_context(n_moduli)
+        nl = n_limbs_for_ctx(ctx)
+        axis = 0 if side == "left" else 1
+        batch = x.shape[:-2]
+        mats = x.reshape(-1, *x.shape[-2:])
+
+        def per_matrix(fn):
+            """fn(matrix) -> tuple of tensors, stacked over the batch dims."""
+            cols = zip(*(fn(x2) for x2 in mats))
+            return [torch.stack(col).reshape(*batch, *col[0].shape) for col in cols]
+
+        def prep_fast(x2):
+            if x2.is_complex():
+                xr, xi = x2.real, x2.imag
+                e = _solo_scale_complex(xr, xi, ctx, side)
+                return (e, *_cast_pair(backend, xr, xi, e, axis, ctx, nl))
+            e = _solo_scale_real(x2, ctx, side)
+            return e, backend.cast(x2, e, axis, ctx, nl)
+
+        def prep_bound(x2):
+            if x2.is_complex():
+                bars, e_bar, _ = scaling.accu_bound_complex(x2.real, x2.imag, side)
+                return (*bars, e_bar)
+            bar, e_bar, _ = scaling.accu_bound_real(x2, side)
+            return bar, e_bar
+
+        # fast preparation stores planes, accu preparation the bound and
+        # the raw operand: the executions read disjoint things
+        e_scale, res = None, []
+        bound, e_bound = [], None
+        if keep_raw:
+            *bound, e_bound = per_matrix(prep_bound)
+        else:
+            e_scale, *res = per_matrix(prep_fast)
+
+        self.side = side
+        self.n_moduli = n_moduli
+        self.n_limbs = nl
+        self.dtype = dt
+        self.e_scale = e_scale
+        self.residues = tuple(res)
+        self.bound = tuple(bound)
+        self.e_bound = e_bound
+        self.raw = x if keep_raw else None
+
+    @property
+    def res(self):
+        """Residues of the real part (the reference's historical name)."""
+        return self.residues[0]
+
+    @property
+    def is_complex(self) -> bool:
+        return self.dtype.startswith("complex")
+
+    @property
+    def mode(self) -> str:
+        """The scaling mode this operand was prepared for, read from what it
+        stores: planes for fast, bound + raw operand for accu."""
+        return "fast" if self.residues else "accu"
+
+    @property
+    def ctx(self) -> CRTContext:
+        return make_crt_context(self.n_moduli)
+
+    @property
+    def batch_ndim(self) -> int:
+        """Leading batch dims of the prepared operand (0 = a plain matrix)."""
+        if self.residues:
+            return self.residues[0].ndim - 3  # (.., N, m, k) planes
+        return self.bound[0].ndim - 2  # (.., m, k) bound matrix
+
+    @property
+    def operand_shape(self) -> tuple[int, int]:
+        """Logical (rows, cols) of the prepared operand (per batch element)."""
+        arrs = self.residues if self.residues else self.bound
+        return tuple(arrs[0].shape[-2:])
+
+    def __repr__(self):
+        return (
+            f"PreparedOperand(side={self.side!r}, dtype={self.dtype}, "
+            f"mode={self.mode!r}, n_moduli={self.n_moduli}, "
+            f"shape={self.operand_shape})"
         )
+
+
+def _solo_scale_real(x, ctx, side):
+    """Fast-mode exponent of one operand alone (a zero other operand)."""
+    if side == "left":
+        e, _ = scaling.scale_fast_real(x, x.new_zeros((x.shape[1], 1), dtype=torch.float64), ctx)
+    else:
+        _, e = scaling.scale_fast_real(x.new_zeros((1, x.shape[0]), dtype=torch.float64), x, ctx)
+    return e
+
+
+def _solo_scale_complex(xr, xi, ctx, side):
+    if side == "left":
+        z = xr.new_zeros((xr.shape[1], 1), dtype=torch.float64)
+        e, _ = scaling.scale_fast_complex(xr, xi, z, z, ctx)
+    else:
+        z = xr.new_zeros((1, xr.shape[0]), dtype=torch.float64)
+        _, e = scaling.scale_fast_complex(z, z, xr, xi, ctx)
+    return e
+
+
+def _gemm_prepared_accu(prep, x, plan, backend):
+    """Accurate-mode prepared product: reuse the stored 7-bit bound, re-cast
+    from the raw operand at the call-time coupled exponents — the
+    operations of `_execute_real` / `_execute_complex` in the same order,
+    hence bitwise equal to the unprepared accu run."""
+    if prep.raw is None:
+        raise ValueError(
+            "accu-mode prepared matmuls re-cast from the raw operand (the "
+            "accurate exponents couple both operands); prepare with "
+            "keep_raw=True / prepare_weights(accu policy)"
+        )
+    ctx = prep.ctx
+    other = "left" if prep.side == "right" else "right"
+    reduce = 1 if prep.side == "left" else 0
+
+    if prep.is_complex:
+        xr, xi = x.real, x.imag
+        xbar, e_xbar, x_nz = scaling.accu_bound_complex(xr, xi, other)
+        pbar, e_pbar = prep.bound, prep.e_bound
+        p_nz = torch.maximum(*[b.to(torch.int32) for b in pbar]).amax(dim=reduce) > 0
+        wr, wi = prep.raw.real, prep.raw.imag
+        if prep.side == "left":
+            cmax = scaling.accu_cbar_complex(pbar, xbar)
+            e_mu, e_nu = scaling.accu_exponents(cmax, e_pbar, e_xbar, p_nz, x_nz, ctx)
+            return _pipeline_complex(plan, backend, ctx, e_mu, wr, wi, e_nu, xr, xi)
+        cmax = scaling.accu_cbar_complex(xbar, pbar)
+        e_mu, e_nu = scaling.accu_exponents(cmax, e_xbar, e_pbar, x_nz, p_nz, ctx)
+        return _pipeline_complex(plan, backend, ctx, e_mu, xr, xi, e_nu, wr, wi)
+
+    xbar, e_xbar, x_nz = scaling.accu_bound_real(x, other)
+    pbar, e_pbar = prep.bound[0], prep.e_bound
+    p_nz = pbar.to(torch.int32).amax(dim=reduce) > 0
+    if prep.side == "left":
+        cbar = int8_matmul(pbar, xbar)
+        e_mu, e_nu = scaling.accu_exponents(cbar, e_pbar, e_xbar, p_nz, x_nz, ctx)
+        return _pipeline_real(plan, backend, ctx, e_mu, prep.raw, e_nu, x)
+    cbar = int8_matmul(xbar, pbar)
+    e_mu, e_nu = scaling.accu_exponents(cbar, e_xbar, e_pbar, x_nz, p_nz, ctx)
+    return _pipeline_real(plan, backend, ctx, e_mu, x, e_nu, prep.raw)
+
+
+def gemm_prepared(prep: PreparedOperand, x: torch.Tensor, method: str = "garner",
+                  formulation: str = "karatsuba", out_dtype=None, n_block=None, backend=None,
+                  mode: str = "fast") -> torch.Tensor:
+    """Emulated product with one prepared side (port of
+    `repro.core.executor.gemm_prepared`).
+
+    side='left':  C ~= prep @ x   (x is B, cast per call)
+    side='right': C ~= x @ prep   (x is A, cast per call)
+
+    Bitwise equal to the direct pipeline in both modes.  mode='fast' skips
+    the prepared side's cast; on a megakernel backend a right-prepared
+    product is one launch per block, the planes feeding the kernel's B
+    side.  mode='accu' reuses the stored bound and re-casts from the raw
+    operand (`_gemm_prepared_accu`).  `backend` None means the kernel
+    backend (the port has no `reference` execution yet), so `method` is
+    'garner'.
+    """
+    if backend is None:
+        backend = _kernel_backend()
+    ctx = prep.ctx
+    if prep.batch_ndim != 0:
+        raise ValueError(
+            "gemm_prepared expects an unbatched (2D) prepared operand; "
+            f"got a {prep.batch_ndim}-batched preparation of "
+            f"shape {prep.operand_shape}"
+        )
+    if prep.side == "left":
+        m, k = prep.operand_shape
+        n = x.shape[1]
+    else:
+        k, n = prep.operand_shape
+        m = x.shape[0]
+    plan = make_plan(
+        prep.dtype,
+        n_moduli=prep.n_moduli,
+        mode=mode,
+        method=method,
+        formulation=formulation if prep.is_complex else None,
+        out_dtype=out_dtype or x.dtype,
+        n_block=n_block,
+        shape=(m, k, n),
+    )
+    nl = prep.n_limbs
+    other_side = "left" if prep.side == "right" else "right"
+
+    if mode == "accu":
+        return _gemm_prepared_accu(prep, x, plan, backend)
+    if not prep.residues:
+        raise ValueError(
+            "this operand was prepared for accu mode (bound + raw only); "
+            "fast-mode calls consume pre-cast residue planes — re-prepare "
+            "with prepare_weights(fast policy)"
+        )
+
+    # the megakernel casts the streaming side in its prologue and reads the
+    # prepared planes directly.  A LEFT-prepared operand stores planes but
+    # no raw matrix, and the prologue needs the raw A tile, so side='left'
+    # takes the composed kernel path the megakernel backend inherits.
+    fused = _megakernel(backend) and prep.side == "right"
+
+    if prep.is_complex:
+        xr, xi = x.real, x.imag
+        e_other = _solo_scale_complex(xr, xi, ctx, other_side)
+        if prep.side == "left":
+            e_mu, e_nu = prep.e_scale, e_other
+            arr, ari = prep.residues
+            bres_slice = lambda sl: _cast_pair(  # noqa: E731
+                backend, xr[:, sl], xi[:, sl], e_nu[sl], 1, ctx, nl)
+        else:
+            e_mu, e_nu = e_other, prep.e_scale
+            planes = lambda sl: tuple(r[..., sl] for r in prep.residues)  # noqa: E731
+            if fused:
+                return _fused_pipeline_complex(plan, backend, ctx, e_mu, xr, xi, e_nu, None,
+                                               planes, n)
+            arr, ari = _cast_pair(backend, xr, xi, e_mu, 0, ctx, nl)
+            bres_slice = planes
+        return _blocked_pipeline_complex(plan, backend, ctx, e_mu, arr, ari, e_nu, bres_slice, n)
+
+    e_other = _solo_scale_real(x, ctx, other_side)
+    if prep.side == "left":
+        e_mu, e_nu, ares = prep.e_scale, e_other, prep.res
+        bres_slice = lambda sl: backend.cast(x[:, sl], e_nu[sl], 1, ctx, nl)  # noqa: E731
+    else:
+        e_mu, e_nu = e_other, prep.e_scale
+        planes = lambda sl: prep.res[..., sl]  # noqa: E731
+        if fused:
+            return _fused_pipeline_real(plan, backend, ctx, e_mu, x, e_nu, None, planes, n)
+        ares = backend.cast(x, e_mu, 0, ctx, nl)
+        bres_slice = planes
+    return _blocked_pipeline_real(plan, backend, ctx, e_mu, ares, e_nu, bres_slice, n)

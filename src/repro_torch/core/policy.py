@@ -4,8 +4,11 @@ The port's copy of `repro.core.policy`, forward only.  A :class:`GemmPolicy`
 answers every static question about a matmul: *what* to emulate
 (``backend``), *how precisely* (``n_moduli``/``mode``/``method``/
 ``out_dtype``), *which complex strategy* (``formulation``/``n_block``) and
-*where* to run it (``execution``).  The port runs ``execution="kernel"``:
-the four hand-written kernels, 4 launches per GEMM at any N.
+*where* to run it (``execution``).  The port runs ``execution="kernel"``
+(four hand-written kernels, 4 launches per GEMM at any N) and
+``execution="fused"`` (one megakernel launch per GEMM).  `policy_matmul`
+also serves a weight prepared up front (`prepare_weights`, a right-side
+`PreparedOperand`).
 
 The reference's other knobs keep their names and defaults here and raise
 `NotImplementedError`, naming the ROADMAP item (queue 1) that brings them,
@@ -16,10 +19,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
+import numpy as np
 import torch
 
-from .executor import run_plan
-from .plan import DTYPES, dtype_name, make_plan
+from .executor import PreparedOperand, gemm_prepared, run_plan
+from .plan import DTYPES, default_n_moduli, dtype_name, make_plan
 
 Backend = Literal["native", "ozaki2_f32", "ozaki2_f64", "ozaki2_c64", "ozaki2_c128"]
 Execution = Literal["reference", "kernel", "per_modulus_kernel", "sharded", "fp8", "fused"]
@@ -30,7 +34,6 @@ EXECUTIONS = ("reference", "kernel", "per_modulus_kernel", "sharded", "fp8", "fu
 _EXECUTION_ITEM = {
     "reference": "the 'reference' execution",
     "per_modulus_kernel": "the 'per_modulus_kernel' execution",
-    "fused": "the 'fused' execution",
     "fp8": "the 'fp8' execution",
     "sharded": "distributed + the 'sharded' execution",
 }
@@ -67,8 +70,8 @@ class GemmPolicy:
     (eqs. 11-12) or ``"accu"`` (eqs. 13-14).  ``method``: ``"auto"`` or
     ``"garner"`` on the kernel execution.  ``formulation``: ``"karatsuba"``,
     ``"block_a"`` or ``"block_b"``.  ``n_block``: an int, None or
-    ``"auto"``.  ``execution``: ``"kernel"`` runs; the default
-    ``"reference"`` and the others raise when used.  ``out_dtype``: result
+    ``"auto"``.  ``execution``: ``"kernel"`` and ``"fused"`` run; the
+    default ``"reference"`` and the others raise when used.  ``out_dtype``: result
     dtype name.  ``mesh``, ``shard_axes``, ``calibration``, ``rtol`` and
     ``mode="auto"`` raise.  The reference's ``interpret`` has no
     counterpart: tensors on the CPU take the plain versions.
@@ -126,11 +129,11 @@ class GemmPolicy:
 
     def execution_backend(self):
         """The residue backend of this policy's execution."""
-        if self.execution != "kernel":
+        if self.execution not in ("kernel", "fused"):
             raise _not_ported(f"execution={self.execution!r}", _EXECUTION_ITEM[self.execution])
-        from ..kernels.ops import KernelBackend
+        from ..kernels.ops import FusedBackend, KernelBackend
 
-        return KernelBackend()
+        return FusedBackend() if self.execution == "fused" else KernelBackend()
 
     def plan_for(self, m: int, k: int, n: int):
         """The `EmulationPlan` this policy runs for an (m,k)x(k,n) product."""
@@ -171,8 +174,74 @@ def emulated_matmul(x: torch.Tensor, w: torch.Tensor, policy: GemmPolicy) -> tor
     return _real_cast(y, policy.out_dtype or x.dtype)
 
 
+def _prepared_matmul(x: torch.Tensor, w: PreparedOperand, policy: GemmPolicy) -> torch.Tensor:
+    """x @ w with the weight prepared up front (inference only)."""
+    if x.requires_grad:
+        # the prepared planes carry only the weight-side scaling, the wrong
+        # axis for the cotangent products: training uses raw weights
+        raise ValueError(
+            "prepared-weight matmuls are inference-only; differentiate through "
+            "raw weights (emulated_matmul) instead"
+        )
+    y = gemm_prepared(
+        w,
+        x.to(policy.compute_dtype),
+        method=policy.resolved_method,
+        formulation=policy.formulation,
+        out_dtype=policy.out_dtype,
+        n_block=policy.n_block,
+        backend=policy.execution_backend(),
+        mode=policy.mode,
+    )
+    return _real_cast(y, policy.out_dtype or x.dtype)
+
+
+def _check_prepared(w: PreparedOperand, policy: GemmPolicy) -> None:
+    """Raise when a prepared weight does not match the calling policy."""
+    if policy.backend == "native":
+        raise ValueError(
+            "prepared weights require an emulated (ozaki2_*) policy "
+            "backend; the native policy runs torch.matmul on raw weights"
+        )
+    if w.side != "right":
+        raise ValueError("policy_matmul expects a side='right' prepared weight")
+    if policy.mode == "accu" and w.raw is None:
+        raise ValueError(
+            "accu-mode prepared matmuls re-cast from the raw operand "
+            "(the accurate exponents couple both operands); re-prepare "
+            "with prepare_weights(accu policy) / keep_raw=True"
+        )
+    if w.mode != policy.mode:
+        raise ValueError(
+            f"prepared weight was prepared for mode={w.mode!r} but the "
+            f"policy resolves to mode={policy.mode!r}; re-prepare with "
+            "prepare_weights(policy)"
+        )
+    expect = policy.n_moduli or default_n_moduli(policy.compute_dtype, policy.mode)
+    if w.n_moduli != expect:
+        raise ValueError(
+            f"prepared weight has n_moduli={w.n_moduli} but the policy "
+            f"resolves to {expect}; re-prepare with prepare_weights(policy)"
+        )
+    if w.dtype != dtype_name(policy.compute_dtype):
+        raise ValueError(
+            f"prepared weight was cast for {w.dtype} but the policy "
+            f"computes in {dtype_name(policy.compute_dtype)}; "
+            "re-prepare with prepare_weights(policy)"
+        )
+
+
 def policy_matmul(x: torch.Tensor, w, policy: GemmPolicy) -> torch.Tensor:
-    """x: (..., k) @ w: (k, n) under the policy's backend and execution."""
+    """x: (..., k) @ w: (k, n) under the policy's backend and execution.
+
+    `w` may be a raw tensor or a right-side `PreparedOperand` (weights cast
+    once, amortized across calls: the serving path)."""
+    if isinstance(w, PreparedOperand):
+        _check_prepared(w, policy)
+        n = w.operand_shape[1]
+        lead = x.shape[:-1]
+        y = _prepared_matmul(x.reshape(-1, x.shape[-1]), w, policy)
+        return y.reshape(*lead, n)
     if policy.backend == "native":
         y = torch.matmul(x, w)
         return y if policy.out_dtype is None else y.to(DTYPES[policy.out_dtype])
@@ -181,6 +250,50 @@ def policy_matmul(x: torch.Tensor, w, policy: GemmPolicy) -> torch.Tensor:
     return y.reshape(*lead, w.shape[-1])
 
 
-def prepare_weights(params, policy: GemmPolicy):
-    """Pre-cast every linear weight in a param tree (serving): not ported."""
-    raise _not_ported("prepare_weights", "'PreparedOperand / prepare_weights'")
+def prepare_weights(params, policy: GemmPolicy, device=None):
+    """Pre-residue-cast every linear weight in a param tree (serving).
+
+    Walks dicts, lists and tuples and replaces each ``"w"`` value (a
+    tensor or numpy array of ndim >= 2, possibly stacked with leading
+    layer dims, or a list/tuple of such stacks) by a right-side
+    `PreparedOperand` cast with the policy's execution backend, so prepared
+    serving stays bitwise equal to the unprepared run.  Fast mode stores
+    the weight's residue planes; accu mode its bound and the raw weight
+    (`keep_raw`).  A native policy returns the tree unchanged.  `device`:
+    where the prepared weights live (None = the card).
+    """
+    if policy.backend == "native":
+        return params
+    cast_backend = policy.execution_backend()
+    ct = policy.compute_dtype
+    n_moduli = policy.n_moduli or default_n_moduli(ct, policy.mode)
+
+    def is_weight_leaf(val):
+        if isinstance(val, np.ndarray):  # a checkpoint restore may hand numpy
+            return val.ndim >= 2 and np.issubdtype(val.dtype, np.inexact)
+        return (
+            isinstance(val, torch.Tensor)
+            and val.ndim >= 2
+            and (val.is_floating_point() or val.is_complex())
+        )
+
+    def prep(val):
+        """Rewrite one "w" value: a weight, or a list/tuple of stacked
+        weights; the "w" context runs through the sequence nesting."""
+        if is_weight_leaf(val):
+            return PreparedOperand(
+                torch.as_tensor(val).to(ct), n_moduli, side="right", backend=cast_backend,
+                keep_raw=policy.mode == "accu", device=device,
+            )
+        if isinstance(val, (list, tuple)):
+            return type(val)(prep(v) for v in val)
+        return walk(val)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {key: (prep(val) if key == "w" else walk(val)) for key, val in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(params)

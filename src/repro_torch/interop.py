@@ -10,12 +10,17 @@
 * `tensors_from_numpy(tree, device)` turns numpy operands, residue planes
   and exponent vectors — alone or in tuples, lists and dicts — into
   tensors on `device`.
+* `prepared_from_numpy(fields, device)` builds the port's
+  `PreparedOperand` from a reference preparation's fields, so a weight
+  prepared by the reference (for example one restored from a checkpoint)
+  serves from the port with equal bits.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .core.executor import PreparedOperand
 from .core.policy import GemmPolicy
 
 _DROPPED_FIELDS = ("interpret", "mesh", "shard_axes", "calibration")
@@ -28,9 +33,25 @@ def policy_from_fields(d: dict) -> GemmPolicy:
 
 def tensors_from_numpy(tree, device="cpu"):
     if isinstance(tree, np.ndarray):
-        return torch.from_numpy(np.ascontiguousarray(tree)).to(device)
+        return torch.from_numpy(np.array(tree, order="C")).to(device)  # a copy: writable
     if isinstance(tree, (tuple, list)):
         return type(tree)(tensors_from_numpy(x, device) for x in tree)
     if isinstance(tree, dict):
         return {k: tensors_from_numpy(v, device) for k, v in tree.items()}
     return tree
+
+
+def prepared_from_numpy(fields: dict, device="cpu") -> PreparedOperand:
+    """The port's `PreparedOperand` from a reference preparation's fields:
+    `side`, `n_moduli`, `n_limbs` and `dtype` (a name), and as numpy (or
+    None) the arrays `e_scale`, `e_bound` and `raw` and the tuples
+    `residues` and `bound`, placed on `device`."""
+    prep = object.__new__(PreparedOperand)
+    prep.side = fields["side"]
+    prep.n_moduli, prep.n_limbs = int(fields["n_moduli"]), int(fields["n_limbs"])
+    prep.dtype = str(fields["dtype"])
+    prep.e_scale, prep.e_bound, prep.raw = (
+        tensors_from_numpy(fields[k], device) for k in ("e_scale", "e_bound", "raw"))
+    prep.residues, prep.bound = (
+        tuple(tensors_from_numpy(tuple(fields[k]), device)) for k in ("residues", "bound"))
+    return prep

@@ -1,5 +1,5 @@
-"""The port's four Hopper kernels, each with its plain PyTorch version and
-a launch counter (`<wrapper>.launches`), and the kernel residue backend."""
+"""The port's Hopper kernels, each with its plain PyTorch version and a
+launch counter (`<wrapper>.launches`), and the residue backends."""
 from . import crt_garner, int8_mod_gemm, karatsuba_fused, residue_cast
 
 #: the wrapper of each kernel, by the name of its CUDA source
@@ -8,6 +8,8 @@ WRAPPERS = {
     "int8_mod_gemm": int8_mod_gemm.int8_mod_gemm_batched,
     "karatsuba_fused": karatsuba_fused.karatsuba_mod_gemm_batched,
     "crt_garner": crt_garner.crt_garner,
+    "fused_mod_gemm": int8_mod_gemm.fused_mod_gemm,
+    "fused_karatsuba": karatsuba_fused.fused_karatsuba_mod_gemm,
 }
 
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.intmul import int8_matmul
 from ..core.residues import LIMB_BITS, sym_mod_int32
 from ..core.scaling import exp2_vector
 
@@ -76,6 +77,18 @@ def sym_mod_int32_dyn(d, pf, half, m16):
     rh = sym_mod_f32(dh, pf, half)
     rl = sym_mod_f32(dl, pf, half)
     return sym_mod_f32(rh * m16 + rl, pf, half)
+
+
+def chunked_mod_product(a, b, pf, half, m16, chunk_limit):
+    """The canonical residues (as f32) of the exact int8 product a @ b mod p,
+    summed over K slices of `chunk_limit` with the symmetric mod between
+    them: the megakernels' in-kernel chunk reduction, in PyTorch."""
+    k = a.shape[-1]
+    acc = None
+    for k0 in range(0, max(k, 1), chunk_limit):
+        d = int8_matmul(a[..., k0:k0 + chunk_limit], b[..., k0:k0 + chunk_limit, :])
+        acc = d if acc is None else sym_mod_int32_dyn(acc, pf, half, m16).to(torch.int32) + d
+    return sym_mod_int32_dyn(acc, pf, half, m16)
 
 
 def static_mod_params(p: int) -> tuple[float, float, float]:

@@ -96,13 +96,17 @@ def _inverse_scales(e_mu, e_nu, ctx):
     return r1, r2, c1, c2
 
 
+def garner_scaled(planes, e_mu, e_nu, ctx, *, out_dd):
+    """`garner_tile` with the inverse scaling of exponents (e_mu, e_nu):
+    planes of shape (..., m, n) -> the f32 value, or the (hi, lo) pair."""
+    r1, r2, c1, c2 = _inverse_scales(e_mu, e_nu, ctx)
+    return garner_tile(planes, (r1 * r2)[:, None], (c1 * c2)[None, :], ctx=ctx, out_dd=out_dd)
+
+
 def crt_garner_plain(e_res, e_mu, e_nu, ctx, *, out_dd):
     """(S, N, m, n) int8 -> (S, m, n) f32 or (S, 2, m, n), in PyTorch."""
-    r1, r2, c1, c2 = _inverse_scales(e_mu, e_nu, ctx)
     planes = [e_res[:, t].to(torch.float32) for t in range(ctx.n)]
-    rr = (r1 * r2)[:, None]
-    cc = (c1 * c2)[None, :]
-    out = garner_tile(planes, rr, cc, ctx=ctx, out_dd=out_dd)
+    out = garner_scaled(planes, e_mu, e_nu, ctx, out_dd=out_dd)
     return torch.stack(out, dim=1) if out_dd else out
 
 

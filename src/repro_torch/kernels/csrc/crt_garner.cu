@@ -11,61 +11,14 @@
 //
 // Design: one thread per output element of the (S, m, n) stack, in a
 // grid-stride loop; neighbouring threads read neighbouring residues of each
-// plane, so every load is coalesced.  The digits are the reference's exact
-// f32 integer arithmetic (all values < 2^17).  The digits -> value sum runs
-// most significant digit first in double-single arithmetic with the f32
-// weight table W_t 2^-S, in the op order of crt_garner.py:84-94 and
-// core/expansion.py:17-52: every multiply and add rounds on its own
-// (-fmad=false), except the one fused multiply-add of crt_garner.py:89,
-// `pe = pe + w_lo * digit`, which XLA on the CPU contracts into an FMA and
-// which is therefore an explicit __fmaf_rn here.  The digit array is held in
-// registers: NMAX is a compile-time bound (8, 16 or 24) on the runtime N.
-#include "common.cuh"
+// plane, so every load is coalesced.  The digits and the double-single sum
+// are `garner_tile.cuh`'s `garner_value` (shared with the megakernels), in
+// the reference's op order with its one fused multiply-add.  The digit
+// array is held in registers: NMAX is a compile-time bound (8, 16 or 24) on
+// the runtime N.
+#include "garner_tile.cuh"
 
 namespace {
-
-struct GarnerParams {
-  int n_mod;
-  float p[REPRO_MAX_MODULI];
-  float half[REPRO_MAX_MODULI];
-  float recip[REPRO_MAX_MODULI];
-  float inv[REPRO_MAX_MODULI][REPRO_MAX_MODULI];  // inv[s][t] = p_s^-1 mod p_t
-  float w_hi[REPRO_MAX_MODULI];
-  float w_lo[REPRO_MAX_MODULI];
-};
-
-struct DS {
-  float hi, lo;
-};
-
-__device__ __forceinline__ DS two_sum(float a, float b) {
-  const float s = a + b;
-  const float bb = s - a;
-  return {s, (a - (s - bb)) + (b - bb)};
-}
-
-__device__ __forceinline__ DS quick_two_sum(float a, float b) {
-  const float s = a + b;
-  return {s, b - (s - a)};
-}
-
-__device__ __forceinline__ DS split(float a) {
-  const float c = 4097.0f * a;
-  const float hi = c - (c - a);
-  return {hi, a - hi};
-}
-
-__device__ __forceinline__ DS two_prod(float a, float b) {
-  const float p = a * b;
-  const DS as = split(a), bs = split(b);
-  return {p, (((as.hi * bs.hi - p) + as.hi * bs.lo) + as.lo * bs.hi) + as.lo * bs.lo};
-}
-
-__device__ __forceinline__ DS dd_add(DS x, DS y) {
-  const DS s = two_sum(x.hi, y.hi);
-  const float te = (x.lo + y.lo) + s.lo;
-  return quick_two_sum(s.hi, te);
-}
 
 template <int NMAX>
 __global__ void __launch_bounds__(256) crt_garner_kernel(
@@ -83,31 +36,12 @@ __global__ void __launch_bounds__(256) crt_garner_kernel(
     const long long i = pos / n, j = pos - i * n;
     const int8_t* src = res + s * N * mn + pos;
 
-    // Garner digits, exact f32 integer arithmetic
     float d[NMAX];
 #pragma unroll
     for (int t = 0; t < NMAX; ++t) {
-      if (t < N) {
-        const float p = prm.p[t], half = prm.half[t], recip = prm.recip[t];
-        float r = static_cast<float>(src[t * mn]);
-#pragma unroll
-        for (int u = 0; u < NMAX; ++u) {
-          if (u < t) r = sym_mod_f32((r - d[u]) * prm.inv[u][t], p, half, recip);
-        }
-        d[t] = r;
-      }
+      if (t < N) d[t] = static_cast<float>(src[t * mn]);
     }
-
-    // digits -> value, double-single, most significant digit first
-    DS acc = {0.0f, 0.0f};
-#pragma unroll
-    for (int t = NMAX - 1; t >= 0; --t) {
-      if (t < N) {
-        DS pr = two_prod(prm.w_hi[t], d[t]);
-        pr.lo = __fmaf_rn(prm.w_lo[t], d[t], pr.lo);  // crt_garner.py:89, fused as XLA does
-        acc = dd_add(acc, pr);
-      }
-    }
+    const DS acc = garner_value<NMAX>(d, prm);
 
     // exact inverse power-of-two scaling (folds in 2^S)
     const float rr = r1[i] * r2[i];
@@ -128,16 +62,9 @@ extern "C" int crt_garner_launch(const void* res, const void* r1, const void* r2
                                  int n_mod, long long m, long long n, int out_dd,
                                  const int* moduli, const int* garner_inv,
                                  const float* weights, void* stream) {
-  if (n_mod < 1 || n_mod > REPRO_MAX_MODULI) return static_cast<int>(cudaErrorInvalidValue);
   GarnerParams prm;
-  prm.n_mod = n_mod;
-  for (int t = 0; t < n_mod; ++t) {
-    prm.p[t] = static_cast<float>(moduli[t]);
-    prm.half[t] = static_cast<float>((moduli[t] - 1) / 2);
-    prm.recip[t] = static_cast<float>(1.0 / moduli[t]);
-    prm.w_hi[t] = weights[2 * t];
-    prm.w_lo[t] = weights[2 * t + 1];
-    for (int u = 0; u < n_mod; ++u) prm.inv[u][t] = static_cast<float>(garner_inv[u * n_mod + t]);
+  if (!make_garner_params(prm, n_mod, moduli, garner_inv, weights)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long total = S * m * n;
   if (total == 0) return 0;

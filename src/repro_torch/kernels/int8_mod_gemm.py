@@ -1,13 +1,19 @@
-"""Modulus-batched int8 residue GEMM with a symmetric-mod epilogue.
+"""Modulus-batched int8 residue GEMM with a symmetric-mod epilogue, and
+the one-launch real megakernel.
 
-Port of `repro.kernels.int8_mod_gemm.int8_mod_gemm_batched` (Alg. 1 steps
-V-iii/iv for all N moduli in one launch).  The optional `carry` (N, m, n)
-int8 residue stack is folded into the epilogue reduction,
-out = sym_mod(acc + carry, p): K-chunked products thread the previous
-chunk's residues through it.
+Port of `repro.kernels.int8_mod_gemm`:
 
-On CUDA tensors `int8_mod_gemm_batched` launches `csrc/int8_mod_gemm.cu`;
-on CPU tensors it runs `int8_mod_gemm_plain`.
+* `int8_mod_gemm_batched` (Alg. 1 steps V-iii/iv for all N moduli in one
+  launch).  The optional `carry` (N, m, n) int8 residue stack is folded
+  into the epilogue reduction, out = sym_mod(acc + carry, p): K-chunked
+  products thread the previous chunk's residues through it.  On CUDA
+  tensors it launches `csrc/int8_mod_gemm.cu`; on CPU tensors it runs
+  `int8_mod_gemm_plain`.
+* `fused_mod_gemm`, the whole emulated GEMM in one launch: the residue
+  cast of A (and of B, unless its planes come pre-cast) as prologue, the N
+  plane products with the K-chunk reduction inside, Garner with inverse
+  scaling as epilogue.  On CUDA tensors it launches
+  `csrc/fused_mod_gemm.cu`; on CPU tensors it runs `fused_mod_gemm_plain`.
 """
 from __future__ import annotations
 
@@ -18,8 +24,20 @@ import numpy as np
 import torch
 
 from ..core.intmul import int8_matmul
+from ..core.moduli import K_CHUNK_LIMIT, CRTContext
 from . import build
-from .common import check_tensor, on_card, plane_mod_params, sym_mod_int32_dyn
+from .common import (
+    check_tensor,
+    chunked_mod_product,
+    limb_radix_f32,
+    on_card,
+    plane_mod_params,
+    residue_tiles_f32,
+    split_scale_exponent,
+    static_mod_params,
+    sym_mod_int32_dyn,
+)
+from .crt_garner import _inverse_scales, _weight_table, garner_scaled
 
 
 def int8_mod_gemm_plain(a, b, *, moduli, carry=None):
@@ -84,3 +102,128 @@ def int8_mod_gemm_batched(
 
 
 int8_mod_gemm_batched.launches = 0
+
+
+# --------------------------------------------------------------- megakernel
+
+
+def fused_mod_gemm_plain(a, b, e_mu, e_nu, ctx, *, n_limbs, out_dd=False, b_res=None,
+                         chunk_limit=K_CHUNK_LIMIT):
+    """The megakernel's function in PyTorch, in the op order of the
+    reference's `_fused_kernel`: `residue_tiles_f32` casts, per-plane exact
+    products over `chunk_limit` K slices with the symmetric mod between
+    them, and `garner_tile` with the inverse scaling."""
+    sa1, sa2 = split_scale_exponent(e_mu)
+    a_tiles = residue_tiles_f32(a, sa1, sa2, moduli=ctx.moduli, n_limbs=n_limbs, scale_axis=0)
+    if b_res is None:
+        sb1, sb2 = split_scale_exponent(e_nu)
+        b_tiles = [t.to(torch.int8) for t in residue_tiles_f32(
+            b, sb1, sb2, moduli=ctx.moduli, n_limbs=n_limbs, scale_axis=1)]
+    else:
+        b_tiles = list(b_res)
+    planes = [
+        chunked_mod_product(a_tiles[l].to(torch.int8), b_tiles[l], *static_mod_params(p), chunk_limit)
+        for l, p in enumerate(ctx.moduli)
+    ]
+    out = garner_scaled(planes, e_mu, e_nu, ctx, out_dd=out_dd)
+    return torch.stack(out) if out_dd else out
+
+
+def fused_tables(ctx: CRTContext, n_limbs: int) -> dict[str, np.ndarray]:
+    """The host tables a megakernel copies into its parameters: moduli,
+    limb radix, Garner inverses and the double-single weights."""
+    return {
+        "moduli": np.ascontiguousarray(ctx.moduli, dtype=np.int32),
+        "radix": np.ascontiguousarray(limb_radix_f32(ctx.moduli, n_limbs)),
+        "inv": np.ascontiguousarray(ctx.garner_inv, dtype=np.int32),
+        "weights": np.ascontiguousarray(_weight_table(ctx)),
+    }
+
+
+def fused_scales(e_mu, e_nu, ctx: CRTContext, m: int, n: int, prepared: bool):
+    """The f32 factor vectors of a megakernel launch, checked: the cast
+    scales of A rows and B columns (None for B when prepared) and the
+    inverse scales (r1, r2, c1, c2)."""
+    if tuple(e_mu.shape) != (m,) or tuple(e_nu.shape) != (n,):
+        raise ValueError(f"exponents {tuple(e_mu.shape)}, {tuple(e_nu.shape)} for an ({m}, {n}) output")
+    sa = split_scale_exponent(e_mu)
+    sb = (None, None) if prepared else split_scale_exponent(e_nu)
+    return sa, sb, _inverse_scales(e_mu, e_nu, ctx)
+
+
+def ptr(t: torch.Tensor | None):
+    """The device address of `t` for a C entry point (None for null)."""
+    return None if t is None else t.data_ptr()
+
+
+@functools.cache
+def _fused_entry():
+    fn = build.library("fused_mod_gemm").fused_mod_gemm_launch
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _fused_launch(a, b, e_mu, e_nu, ctx, *, n_limbs, out_dd, b_res, chunk_limit):
+    m, k = a.shape
+    n = b.shape[-1] if b_res is None else b_res.shape[-1]
+    check_tensor("a", a, torch.float32, (m, k))
+    if b_res is None:
+        check_tensor("b", b, torch.float32, (k, n))
+    else:
+        check_tensor("b_res", b_res, torch.int8, (ctx.n, k, n))
+    (sa1, sa2), (sb1, sb2), (r1, r2, c1, c2) = fused_scales(e_mu, e_nu, ctx, m, n, b_res is not None)
+    out = torch.empty((2, m, n) if out_dd else (m, n), dtype=torch.float32, device=a.device)
+    tab = fused_tables(ctx, n_limbs)
+    status = _fused_entry()(
+        a.data_ptr(), sa1.data_ptr(), sa2.data_ptr(), ptr(b), ptr(b_res), ptr(sb1), ptr(sb2),
+        r1.data_ptr(), r2.data_ptr(), c1.data_ptr(), c2.data_ptr(), out.data_ptr(),
+        m, n, k, chunk_limit, int(out_dd), ctx.n, n_limbs,
+        *(t.ctypes.data for t in tab.values()),
+        torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    build.check_launch("fused_mod_gemm", status)
+    fused_mod_gemm.launches += 1
+    return out
+
+
+def fused_mod_gemm(
+    a: torch.Tensor,
+    b: torch.Tensor | None,
+    e_mu: torch.Tensor,
+    e_nu: torch.Tensor,
+    ctx: CRTContext,
+    *,
+    n_limbs: int,
+    out_dd: bool = False,
+    b_res: torch.Tensor | None = None,
+    chunk_limit: int | None = None,
+) -> torch.Tensor:
+    """The one-launch real megakernel: C = A @ B emulated end to end.
+
+    a: (m, k); b: (k, n), or None with `b_res` the pre-cast (N, k, n) int8
+    planes (prepared serving); both are cast to f32 first.  e_mu / e_nu:
+    the integer scale exponents.  Returns the (m, n) f32 output, or the
+    (2, m, n) double-single pair with `out_dd`.  The K sum is reduced mod p
+    every `chunk_limit` columns (default 2^17) inside the launch, so any k
+    is accepted.  Bitwise equal to the composed cast/product/Garner path.
+    """
+    if chunk_limit is None:
+        chunk_limit = K_CHUNK_LIMIT
+    if (b is None) == (b_res is None):
+        raise ValueError("pass exactly one of b (raw) and b_res (pre-cast planes)")
+    a = a.to(torch.float32).contiguous()
+    if b is not None:
+        b = b.to(torch.float32).contiguous()
+    else:
+        b_res = b_res.contiguous()
+    kw = dict(n_limbs=int(n_limbs), out_dd=out_dd, b_res=b_res, chunk_limit=int(chunk_limit))
+    rhs = b if b_res is None else b_res
+    if rhs.shape[-2] != a.shape[-1]:
+        raise ValueError(f"shape mismatch: a {tuple(a.shape)}, b {tuple(rhs.shape)}")
+    if on_card(a, rhs, e_mu, e_nu):
+        return _fused_launch(a, b, e_mu, e_nu, ctx, **kw)
+    return fused_mod_gemm_plain(a, b, e_mu, e_nu, ctx, **kw)
+
+
+fused_mod_gemm.launches = 0

@@ -9,6 +9,14 @@ an optional (CR, CI) carry folded in (K-chunk combine).
 On CUDA tensors `karatsuba_mod_gemm_batched` launches
 `csrc/karatsuba_fused.cu`; on CPU tensors it runs
 `karatsuba_mod_gemm_plain`.
+
+`fused_karatsuba_mod_gemm` is the one-launch complex megakernel (port of
+`repro.kernels.karatsuba_fused.fused_karatsuba_mod_gemm`): the casts of
+AR/AI (and BR/BI, unless pre-cast) as prologue, the D/E/F triple for every
+plane with the K-chunk reduction inside, the CR/CI combine and two Garner
+reconstructions as epilogue.  On CUDA tensors it launches
+`csrc/fused_karatsuba.cu`; on CPU tensors it runs
+`fused_karatsuba_mod_gemm_plain`.
 """
 from __future__ import annotations
 
@@ -19,8 +27,21 @@ import numpy as np
 import torch
 
 from ..core.intmul import int8_matmul
+from ..core.moduli import K_CHUNK_LIMIT, CRTContext
 from . import build
-from .common import check_tensor, on_card, plane_mod_params, sym_mod_f32, sym_mod_int32_dyn
+from .common import (
+    check_tensor,
+    chunked_mod_product,
+    on_card,
+    plane_mod_params,
+    residue_tiles_f32,
+    split_scale_exponent,
+    static_mod_params,
+    sym_mod_f32,
+    sym_mod_int32_dyn,
+)
+from .crt_garner import garner_scaled
+from .int8_mod_gemm import fused_scales, fused_tables, ptr
 
 
 def karatsuba_mod_gemm_plain(ar, ai, br, bi, *, moduli, carry=None):
@@ -111,3 +132,124 @@ def karatsuba_mod_gemm_batched(
 
 
 karatsuba_mod_gemm_batched.launches = 0
+
+
+# --------------------------------------------------------------- megakernel
+
+
+def fused_karatsuba_mod_gemm_plain(ar, ai, br, bi, e_mu, e_nu, ctx, *, n_limbs, out_dd=False,
+                                   b_res=None, chunk_limit=K_CHUNK_LIMIT):
+    """The complex megakernel's function in PyTorch, in the op order of the
+    reference's `_fused_kernel`: f32 residue tiles, per plane the exact
+    D/E/F products over `chunk_limit` K slices, the CR/CI combine, and two
+    `garner_tile` reconstructions with the inverse scaling."""
+    cast = dict(moduli=ctx.moduli, n_limbs=n_limbs)
+    sa1, sa2 = split_scale_exponent(e_mu)
+    art, ait = (torch.stack(t) for t in zip(*residue_tiles_f32(
+        torch.stack([ar, ai]), sa1, sa2, scale_axis=0, **cast)))
+    if b_res is None:
+        sb1, sb2 = split_scale_exponent(e_nu)
+        brt, bit = (torch.stack(t) for t in zip(*residue_tiles_f32(
+            torch.stack([br, bi]), sb1, sb2, scale_axis=1, **cast)))
+    else:
+        brt, bit = (r.to(torch.float32) for r in b_res)
+    cr_planes, ci_planes = [], []
+    for l, p in enumerate(ctx.moduli):
+        pf, half, m16 = static_mod_params(p)
+        asum = sym_mod_f32(art[l] + ait[l], pf, half).to(torch.int8)
+        bsum = sym_mod_f32(brt[l] + bit[l], pf, half).to(torch.int8)
+        prod = lambda x, y: chunked_mod_product(  # noqa: E731
+            x.to(torch.int8), y.to(torch.int8), pf, half, m16, chunk_limit)
+        dr, de, df = prod(art[l], brt[l]), prod(ait[l], bit[l]), prod(asum, bsum)
+        cr_planes.append(sym_mod_f32(dr - de, pf, half))
+        ci_planes.append(sym_mod_f32(df - dr - de, pf, half))
+    outs = [garner_scaled(planes, e_mu, e_nu, ctx, out_dd=out_dd) for planes in (cr_planes, ci_planes)]
+    return tuple(torch.stack(o) if out_dd else o for o in outs)
+
+
+@functools.cache
+def _fused_entry():
+    fn = build.library("fused_karatsuba").fused_karatsuba_launch
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _fused_launch(ar, ai, br, bi, e_mu, e_nu, ctx, *, n_limbs, out_dd, b_res, chunk_limit):
+    m, k = ar.shape
+    prepared = b_res is not None
+    n = (b_res[0] if prepared else br).shape[-1]
+    for name, t in (("ar", ar), ("ai", ai)):
+        check_tensor(name, t, torch.float32, (m, k))
+    if prepared:
+        for name, t in zip(("brr", "bri"), b_res):
+            check_tensor(name, t, torch.int8, (ctx.n, k, n))
+        brr, bri = b_res
+    else:
+        for name, t in (("br", br), ("bi", bi)):
+            check_tensor(name, t, torch.float32, (k, n))
+        brr = bri = None
+    (sa1, sa2), (sb1, sb2), (r1, r2, c1, c2) = fused_scales(e_mu, e_nu, ctx, m, n, prepared)
+    shape = (2, m, n) if out_dd else (m, n)
+    cr = torch.empty(shape, dtype=torch.float32, device=ar.device)
+    ci = torch.empty_like(cr)
+    tab = fused_tables(ctx, n_limbs)
+    status = _fused_entry()(
+        ar.data_ptr(), ai.data_ptr(), sa1.data_ptr(), sa2.data_ptr(), ptr(br), ptr(bi),
+        ptr(brr), ptr(bri), ptr(sb1), ptr(sb2), r1.data_ptr(), r2.data_ptr(), c1.data_ptr(),
+        c2.data_ptr(), cr.data_ptr(), ci.data_ptr(),
+        m, n, k, chunk_limit, int(out_dd), ctx.n, n_limbs,
+        *(t.ctypes.data for t in tab.values()),
+        torch.cuda.current_stream(ar.device).cuda_stream,
+    )
+    build.check_launch("fused_karatsuba", status)
+    fused_karatsuba_mod_gemm.launches += 1
+    return cr, ci
+
+
+def fused_karatsuba_mod_gemm(
+    ar: torch.Tensor,
+    ai: torch.Tensor,
+    br: torch.Tensor | None,
+    bi: torch.Tensor | None,
+    e_mu: torch.Tensor,
+    e_nu: torch.Tensor,
+    ctx: CRTContext,
+    *,
+    n_limbs: int,
+    out_dd: bool = False,
+    b_res: tuple[torch.Tensor, torch.Tensor] | None = None,
+    chunk_limit: int | None = None,
+):
+    """The one-launch complex megakernel: C = (AR + i AI)(BR + i BI) emulated.
+
+    ar/ai: (m, k); br/bi: (k, n), or None with `b_res` the pre-cast
+    ((N, k, n), (N, k, n)) int8 plane pair (prepared serving); all are cast
+    to f32 first.  Returns (cr, ci), each (m, n) f32 or (2, m, n)
+    double-single with `out_dd`.  The K sums are reduced mod p every
+    `chunk_limit` columns (default 2^17) inside the launch.  Bitwise equal
+    to the composed cast/Karatsuba/Garner path.
+    """
+    if chunk_limit is None:
+        chunk_limit = K_CHUNK_LIMIT
+    if (br is None) != (bi is None) or (br is None) == (b_res is None):
+        raise ValueError("pass exactly one of (br, bi) (raw) and b_res (pre-cast planes)")
+    ar, ai = (x.to(torch.float32).contiguous() for x in (ar, ai))
+    if b_res is None:
+        br, bi = (x.to(torch.float32).contiguous() for x in (br, bi))
+        rhs = (br, bi)
+    else:
+        b_res = tuple(r.contiguous() for r in b_res)
+        rhs = b_res
+    if ai.shape != ar.shape or rhs[0].shape != rhs[1].shape or rhs[0].shape[-2] != ar.shape[-1]:
+        raise ValueError(
+            f"shape mismatch: ar {tuple(ar.shape)}, ai {tuple(ai.shape)}, "
+            f"b {tuple(rhs[0].shape)}, {tuple(rhs[1].shape)}"
+        )
+    kw = dict(n_limbs=int(n_limbs), out_dd=out_dd, b_res=b_res, chunk_limit=int(chunk_limit))
+    if on_card(ar, ai, *rhs, e_mu, e_nu):
+        return _fused_launch(ar, ai, br, bi, e_mu, e_nu, ctx, **kw)
+    return fused_karatsuba_mod_gemm_plain(ar, ai, br, bi, e_mu, e_nu, ctx, **kw)
+
+
+fused_karatsuba_mod_gemm.launches = 0

@@ -1,4 +1,5 @@
-"""The kernel residue backend behind `GemmPolicy(execution="kernel")`.
+"""The residue backends behind `GemmPolicy(execution="kernel")` and
+`GemmPolicy(execution="fused")`.
 
 Port of `repro.kernels.ops.KernelBackend`: it maps the executor's residue
 primitives onto the four kernels, one launch each whatever the modulus
@@ -8,6 +9,9 @@ their grid, and `crt_garner` reconstructs the whole (stacked) output.  A
 GEMM with k <= 2^17 is therefore cast + cast + product + reconstruct = 4
 launches.  Reconstruction is always Garner; f64-grade output uses its
 double-single mode, summed in float64 as hi + lo.
+
+`FusedBackend` (execution="fused") runs each emulated GEMM as one launch
+of a megakernel instead (`fused_mod_gemm`, `fused_karatsuba_mod_gemm`).
 """
 from __future__ import annotations
 
@@ -15,12 +19,13 @@ import dataclasses
 
 import torch
 
+from ..core import executor
 from ..core.executor import chunked_residue_matmul
 from ..core.moduli import CRTContext
 from .common import split_scale_exponent
 from .crt_garner import crt_garner
-from .int8_mod_gemm import int8_mod_gemm_batched
-from .karatsuba_fused import karatsuba_mod_gemm_batched
+from .int8_mod_gemm import fused_mod_gemm, int8_mod_gemm_batched
+from .karatsuba_fused import fused_karatsuba_mod_gemm, karatsuba_mod_gemm_batched
 from .residue_cast import residue_cast
 
 
@@ -80,3 +85,49 @@ class KernelBackend:
         if out_dd:
             return out[:, 0].double() + out[:, 1].double()
         return out
+
+
+def _dd_sum(out):
+    """The float64 value hi + lo of a (2, m, n) double-single pair."""
+    return out[0].double() + out[1].double()
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedBackend(KernelBackend):
+    """Residue backend running the one-launch megakernels
+    (execution="fused", port of `repro.kernels.ops.FusedBackend`): the
+    residue casts run as the kernel's prologue, the N plane products
+    accumulate with the K-chunk reduction inside, and Garner runs as the
+    epilogue — an emulated GEMM is ONE launch per output-column block, in
+    fast and accu mode (the scaling runs outside the kernels).
+
+    The executor dispatches on ``megakernel = True``; a left-prepared
+    operand, which stores planes but no raw matrix, takes the composed
+    primitives inherited from :class:`KernelBackend`.  Bitwise equal to
+    execution="kernel": the prologue and epilogue run the cast's and
+    Garner's exact op sequences.
+    """
+
+    megakernel = True
+
+    @staticmethod
+    def _chunk_limit() -> int:
+        # read at call time, so a patch of executor.K_CHUNK_LIMIT governs it
+        return executor.K_CHUNK_LIMIT
+
+    def fused_gemm(self, a, b, e_mu, e_nu, ctx: CRTContext, n_limbs, out_dtype, b_res=None):
+        out_dd = out_dtype == torch.float64
+        out = fused_mod_gemm(
+            a, b, e_mu, e_nu, ctx, n_limbs=n_limbs, out_dd=out_dd, b_res=b_res,
+            chunk_limit=self._chunk_limit(),
+        )
+        return _dd_sum(out) if out_dd else out
+
+    def fused_karatsuba_gemm(self, ar, ai, br, bi, e_mu, e_nu, ctx: CRTContext, n_limbs,
+                             out_dtype, b_res=None):
+        out_dd = out_dtype == torch.float64
+        cr, ci = fused_karatsuba_mod_gemm(
+            ar, ai, br, bi, e_mu, e_nu, ctx, n_limbs=n_limbs, out_dd=out_dd, b_res=b_res,
+            chunk_limit=self._chunk_limit(),
+        )
+        return (_dd_sum(cr), _dd_sum(ci)) if out_dd else (cr, ci)

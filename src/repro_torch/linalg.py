@@ -9,9 +9,17 @@ Device rule: every entry point takes ``device=None``, which means
 ``"cuda"``.  Operands (tensors or numpy arrays) are moved to that device
 and the result is returned there.  Without a CUDA device it raises; it
 never computes on the CPU unless asked with ``device="cpu"``, which runs
-the kernels' plain PyTorch versions.  On the kernel execution the d/zgemm
-results are float64-shaped but f32-grade, as in the reference: the residue
-cast quantizes through float32.
+the kernels' plain PyTorch versions.  On the kernel and fused executions
+the d/zgemm results are float64-shaped but f32-grade, as in the reference:
+the residue cast quantizes through float32.
+
+Prepared serving: `prepare_weights` casts the ``"w"`` weights of a param
+tree once; `matmul` and the BLAS wrappers accept such a right-side
+`PreparedOperand` in place of the weight::
+
+    pol = GemmPolicy(backend="ozaki2_c128", execution="fused")
+    params = prepare_weights({"w": w}, pol)          # on the card
+    y = zgemm(x, params["w"], policy=pol)            # 1 launch per request
 """
 from __future__ import annotations
 
@@ -21,7 +29,7 @@ import threading
 
 import torch
 
-from .core.executor import PreparedOperand
+from .core.executor import PreparedOperand, resolve_device
 from .core.plan import DTYPES, dtype_name
 from .core.policy import (
     BACKEND_FOR_DTYPE,
@@ -77,30 +85,22 @@ def use_policy(policy: GemmPolicy | str):
         stack.pop()
 
 
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point computes on: `device`, else the card."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the emulated GEMM runs on the card; pass "
-            "device='cpu' to run the kernels' plain PyTorch versions"
-        )
-    return device
-
-
 def matmul(x, w, *, policy: GemmPolicy | None = None, rtol: float | None = None, device=None):
     """Drop-in `torch.matmul(x, w)` under `policy` (default: the ambient
     `use_policy` scope; native when none is active), on `device`.
 
-    x: (..., m, k); w: (k, n) or a batched (..., k, n) operand.  A 2D `w`
-    flattens x's leading dims into rows, as in the reference.  `rtol` is
-    shorthand for ``dataclasses.replace(policy, rtol=rtol)``.
+    x: (..., m, k); w: (k, n), a batched (..., k, n) operand, or a
+    right-side `PreparedOperand` (which stays where it was prepared).  A 2D
+    `w` flattens x's leading dims into rows, as in the reference.  `rtol`
+    is shorthand for ``dataclasses.replace(policy, rtol=rtol)``.
     """
     policy = current_policy() if policy is None else policy
     if rtol is not None:
         policy = dataclasses.replace(policy, rtol=rtol)
     device = resolve_device(device)
     x = torch.as_tensor(x, device=device)
+    if isinstance(w, PreparedOperand):
+        return policy_matmul(x, w, policy)
     w = torch.as_tensor(w, device=device)
     if x.ndim < 2 or w.ndim < 2:
         raise ValueError(
@@ -115,9 +115,16 @@ def matmul(x, w, *, policy: GemmPolicy | None = None, rtol: float | None = None,
     return emulated_matmul(x, w, policy)
 
 
-def _blas(dtype, x, w, policy: GemmPolicy | None, device):
+def _blas(routine, dtype, x, w, policy: GemmPolicy | None, device):
     base = current_policy() if policy is None else policy
-    pol = dataclasses.replace(base, backend=BACKEND_FOR_DTYPE[dtype_name(dtype)])
+    name = dtype_name(dtype)
+    pol = dataclasses.replace(base, backend=BACKEND_FOR_DTYPE[name])
+    if isinstance(w, PreparedOperand):
+        if w.dtype != name:
+            raise ValueError(
+                f"{routine} computes in {name} but the prepared operand was cast for {w.dtype}"
+            )
+        return matmul(x, w, policy=pol, device=device)
     device = resolve_device(device)
     x = torch.as_tensor(x, device=device).to(dtype)
     w = torch.as_tensor(w, device=device).to(dtype)
@@ -127,22 +134,22 @@ def _blas(dtype, x, w, policy: GemmPolicy | None, device):
 def sgemm(x, w, *, policy: GemmPolicy | None = None, device=None):
     """Emulated SGEMM: f32 compute, every other knob (mode, execution,
     n_block, ...) from `policy` / the ambient scope."""
-    return _blas(torch.float32, x, w, policy, device)
+    return _blas("sgemm", torch.float32, x, w, policy, device)
 
 
 def dgemm(x, w, *, policy: GemmPolicy | None = None, device=None):
     """Emulated DGEMM: f64 compute, every other knob from the policy.  On
     the kernel execution the output is f64-shaped but f32-grade."""
-    return _blas(torch.float64, x, w, policy, device)
+    return _blas("dgemm", torch.float64, x, w, policy, device)
 
 
 def cgemm(x, w, *, policy: GemmPolicy | None = None, device=None):
     """Emulated CGEMM (paper SIII): complex64 compute; the complex product
     strategy is the policy's `formulation`, default Karatsuba."""
-    return _blas(torch.complex64, x, w, policy, device)
+    return _blas("cgemm", torch.complex64, x, w, policy, device)
 
 
 def zgemm(x, w, *, policy: GemmPolicy | None = None, device=None):
     """Emulated ZGEMM (paper SIII): complex128 compute (f32-grade on the
     kernel execution)."""
-    return _blas(torch.complex128, x, w, policy, device)
+    return _blas("zgemm", torch.complex128, x, w, policy, device)
