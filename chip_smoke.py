@@ -11,7 +11,7 @@ It imports torch, numpy and `repro_torch` only.  Inputs come from
 Any mismatch or exception ends the run with a non-zero exit; no phase's
 failure is caught.
 
-1. Build the six CUDA kernels from `src/repro_torch/kernels/csrc`, one
+1. Build the eight CUDA kernels from `src/repro_torch/kernels/csrc`, one
    `nvcc` each, all at once.
 2. Hold each kernel against its plain PyTorch version on the card, bitwise
    (`torch.equal`): the chain scale -> cast (rows and columns, S = 1 or 2)
@@ -26,11 +26,19 @@ failure is caught.
    f32, complex N = 14 double-single) timed, with the 4-launch kernel
    composition of the same GEMM timed beside as the yardstick and held
    bitwise equal to the megakernel.
+   The two e4m3 kernels (`fp8_mod_gemm`, `fp8_karatsuba`) against their
+   plain versions and against the int8 kernels on the same planes, with
+   and without carry: at the ragged shape and at 4096^3 (the chain's
+   planes; timed, with `torch._scaled_mm` over the same 4N or 12N e4m3
+   digit products as a product-only yardstick), and at the accumulation
+   worst case m = n = 128, k = FP8_K_CHUNK_LIMIT = 2^16: planes of -120
+   (the largest digits in every product), of alternating signs, and
+   random; for the complex kernel AR = -120, AI = 0.
 3. End to end through `repro_torch.linalg`:
    (a) s/d/c/zgemm at 512^3, fast and accu, on `GemmPolicy(execution=
-       "kernel")` and `execution="fused"` (complex also `block_a` and
-       `block_b`): bitwise equal to the same call with device="cpu", which
-       runs the plain versions;
+       "kernel")`, `execution="fused"` and `execution="fp8"` (complex also
+       `block_a` and `block_b`): bitwise equal to the same call with
+       device="cpu", which runs the plain versions;
    (b) the kernel main path: s/d/c/zgemm at 4096^3 and zgemm at 8192^3,
        fast mode, `execution="kernel"`.  The launch counters are zeroed
        just before and read just after: each GEMM is exactly 4 launches
@@ -43,12 +51,18 @@ failure is caught.
    (c) the fused main path: the same GEMMs on the same operands with
        `execution="fused"`, counters zeroed before and read after: exactly
        1 megakernel launch per GEMM, bitwise equal to (b)'s output, timed
-       beside (b) and cuBLAS, relative error below 1e-4.
+       beside (b) and cuBLAS, relative error below 1e-4;
+   (d) the fp8 main path: the same GEMMs on the same operands with
+       `execution="fp8"`, counters zeroed before and read after: exactly 4
+       launches per GEMM (cast, cast, one e4m3 product, Garner), bitwise
+       equal to (b)'s output, timed beside (b) and cuBLAS, relative error
+       below 1e-4.
 4. Prepared serving: `prepare_weights({"w": W})` of an 8192 x 8192 W
    (complex128 and float32) on `fused` and on `kernel`, then three requests
-   of m = 128, 1024 and 8192 rows each: a fused request is 1 launch, a
-   kernel request 3 (cast, product, Garner), each bitwise equal to the
-   unprepared call of the same execution.  Prints each request's time.
+   of m = 128, 1024 and 8192 rows each, and on `fp8` one request of m =
+   1024: a fused request is 1 launch, a kernel or fp8 request 3 (cast,
+   product, Garner), each bitwise equal to the unprepared call of the same
+   execution.  Prints each request's time.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit from nvidia-smi, and {"ok": true, "device": {...}}.
@@ -69,6 +83,7 @@ PHI = 0.5
 # NVIDIA H100 SXM data-sheet peaks (dense), at the full 700 W power limit
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
+FP8_OPS_S = 1979e12
 F32_OPS_S = 67e12
 
 # the Pallas kernel each CUDA kernel replaces
@@ -79,7 +94,11 @@ KERNELS = {
     "crt_garner": "src/repro/kernels/crt_garner.py:97",
     "fused_mod_gemm": "src/repro/kernels/int8_mod_gemm.py:162",
     "fused_karatsuba": "src/repro/kernels/karatsuba_fused.py:194",
+    "fp8_mod_gemm": "src/repro/kernels/fp8_mod_gemm.py:85",
+    "fp8_karatsuba": "src/repro/kernels/fp8_mod_gemm.py:171",
 }
+# the main path whose launch counts each kernel reports
+PATH_OF = {name: name.split("_")[0] if name.startswith(("fused", "fp8")) else "kernel" for name in KERNELS}
 RAGGED = (257, 1000, 129)  # (m, k, n) off every tile multiple
 MAIN = 4096                # the main path's m = n = k
 BIG = 8192                 # the largest zgemm of the main path
@@ -87,6 +106,7 @@ SMALL = 512                # the card-vs-cpu end-to-end parity size
 RAGGED_CHUNK = 256         # chunk_limit forcing in-kernel reductions at RAGGED
 SERVE_N = 8192             # the prepared weight's k = n
 SERVE_M = (128, 1024, 8192)  # the rows of the serving requests
+SERVE_M_FP8 = (1024,)      # the rows of the fp8 serving request
 
 
 def phi_matrix(rng, shape, phi, dtype):
@@ -127,10 +147,11 @@ class KernelChecks:
     """Phase 2: each kernel against its plain version, bitwise, on the card."""
 
     def __init__(self, rng, dev):
-        from repro_torch.kernels import crt_garner, int8_mod_gemm, karatsuba_fused, residue_cast
+        from repro_torch.kernels import crt_garner, fp8_mod_gemm, int8_mod_gemm, karatsuba_fused, residue_cast
 
         self.rng, self.dev = rng, dev
         self.mods = (residue_cast, int8_mod_gemm, karatsuba_fused, crt_garner)
+        self.f8 = fp8_mod_gemm
         self.record = {name: {"max_abs_err": 0.0} for name in KERNELS}
 
     def compare(self, name, kernel, plain, *, timed=None):
@@ -159,6 +180,67 @@ class KernelChecks:
             print(f"  {name} {label}: kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                   f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
         return got
+
+    def same_as_int8(self, name, got, want, what):
+        """Require the e4m3 kernel's residues to equal the int8 kernel's."""
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        if not all(torch.equal(g, w) for g, w in pairs):
+            raise AssertionError(f"{name} {what}: differs from the int8 kernel on the same planes")
+
+    def scaled_mm_yardstick(self, name, operand_pairs):
+        """torch._scaled_mm (e4m3 in, unit scales, f32 out) over the 4 digit
+        products (HH, LL and the two halves of X) of each (A, B) int8 plane
+        pair: the products alone, without the split, the rescale or the mod
+        (a yardstick, not the function)."""
+        one = torch.ones((), dtype=torch.float32, device=self.dev)
+        prods = []
+        for a, b in operand_pairs:
+            ah, al = (d.to(torch.float8_e4m3fn) for d in self.f8.digits(a.float()))
+            bh, bl = (d.t().contiguous().to(torch.float8_e4m3fn).t() for d in self.f8.digits(b.float()))
+            prods += [(ah, bh), (al, bl), (ah, bl), (al, bh)]
+        ms = cuda_ms(lambda: [torch._scaled_mm(x, y, one, one, out_dtype=torch.float32) for x, y in prods], 3)
+        self.record[name]["scaled_mm_ms"] = ms
+        print(f"  {name}: torch._scaled_mm over the same {len(prods)} e4m3 digit products "
+              f"(product-only yardstick) ms={ms:.4f}", flush=True)
+
+    def fp8_worst_case(self):
+        """Both e4m3 kernels at k = FP8_K_CHUNK_LIMIT, m = n = 128, N = 8, on
+        planes of -120 (hi = -8, lo = 8: the largest digit product in every
+        term), of alternating signs, and random; against their plain
+        versions and the int8 kernels.  |r| <= 127 lies inside the kernels'
+        exactness proof whatever p, so all of them give the exact sym_mod."""
+        from repro_torch.core.moduli import make_crt_context
+
+        _, ig, kf, _ = self.mods
+        f8 = self.f8
+        mods = make_crt_context(8).moduli
+        k = f8.FP8_K_CHUNK_LIMIT
+        full_a = torch.full((8, 128, k), -120, dtype=torch.int8, device=self.dev)
+        full_b = torch.full((8, k, 128), -120, dtype=torch.int8, device=self.dev)
+        alt_b = full_b.clone()
+        alt_b[:, ::2, :] = 120
+        cases = {
+            "-120": (full_a, full_b),
+            "alternating": (full_a, alt_b),
+            "random": (self.residues(mods, (128, k)), self.residues(mods, (k, 128))),
+        }
+        for label, (a, b) in cases.items():
+            what = f"worst case 128x{k}x128 N=8 {label}"
+            got = self.compare("fp8_mod_gemm", lambda: f8.fp8_mod_gemm_batched(a, b, moduli=mods),
+                               lambda: f8.fp8_mod_gemm_plain(a, b, moduli=mods))
+            self.same_as_int8("fp8_mod_gemm", got, ig.int8_mod_gemm_batched(a, b, moduli=mods), what)
+            za, zb = torch.zeros_like(a), torch.zeros_like(b)
+            got = self.compare(
+                "fp8_karatsuba", lambda: f8.fp8_karatsuba_mod_gemm_batched(a, za, b, zb, moduli=mods),
+                lambda: f8.fp8_karatsuba_mod_gemm_plain(a, za, b, zb, moduli=mods))
+            self.same_as_int8("fp8_karatsuba", got,
+                              kf.karatsuba_mod_gemm_batched(a, za, b, zb, moduli=mods), what)
+            print(f"  fp8 {what}: == plain == int8, bitwise", flush=True)
+
+    def residues(self, moduli, shape):
+        """Random canonical residue planes on the card."""
+        planes = [self.rng.integers(-((p - 1) // 2), (p - 1) // 2 + 1, size=shape) for p in moduli]
+        return torch.from_numpy(np.stack(planes).astype(np.int8)).to(self.dev)
 
     def int_mm_yardstick(self, name, planes):
         """torch._int_mm over the same int8 (m,k)x(k,n) planes: the products
@@ -253,7 +335,7 @@ class KernelChecks:
         from repro_torch.core import scaling
         from repro_torch.core.moduli import make_crt_context
         from repro_torch.core.plan import n_limbs_for_ctx
-        from repro_torch.kernels.common import split_scale_exponent
+        from repro_torch.kernels.common import plane_mod_params, split_scale_exponent, sym_mod_f32
 
         rc, ig, kf, cg = self.mods
         m, k, n = shape
@@ -305,7 +387,7 @@ class KernelChecks:
                 lambda: kf.karatsuba_mod_gemm_plain(arr, ari, brr, bri, moduli=mods),
                 timed=prod_t,
             )
-            self.compare(
+            second = self.compare(
                 "karatsuba_fused",
                 lambda: kf.karatsuba_mod_gemm_batched(arr, ari, brr, bri, moduli=mods, carry=first),
                 lambda: kf.karatsuba_mod_gemm_plain(arr, ari, brr, bri, moduli=mods, carry=first),
@@ -313,6 +395,25 @@ class KernelChecks:
             if timed:
                 self.int_mm_yardstick("karatsuba_fused", [
                     (x[l], y[l]) for l in range(n_mod) for x, y in ((arr, brr), (ari, bri), (arr, bri))])
+            f8 = self.f8
+            fp8_t = None
+            if timed:
+                fp8_t = (label, n_mod * (2 * m * k + 2 * k * n + 2 * m * n),
+                         24 * n_mod * m * n * k, FP8_OPS_S, 3)
+            for carry, want in ((None, first), (first, second)):
+                got = self.compare(
+                    "fp8_karatsuba",
+                    lambda: f8.fp8_karatsuba_mod_gemm_batched(arr, ari, brr, bri, moduli=mods, carry=carry),
+                    lambda: f8.fp8_karatsuba_mod_gemm_plain(arr, ari, brr, bri, moduli=mods, carry=carry),
+                    timed=fp8_t if carry is None else None,
+                )
+                self.same_as_int8("fp8_karatsuba", got, want, f"{label} carry={carry is not None}")
+            if timed:
+                pf, half, _ = plane_mod_params(mods, self.dev)
+                s_a, s_b = (sym_mod_f32(x.float() + y.float(), pf, half).to(torch.int8)
+                            for x, y in ((arr, ari), (brr, bri)))  # the F operands
+                self.scaled_mm_yardstick("fp8_karatsuba", [
+                    (x[l], y[l]) for l in range(n_mod) for x, y in ((arr, brr), (ari, bri), (s_a, s_b))])
             e_res = torch.stack(first)
         else:
             prod_t = None
@@ -324,13 +425,27 @@ class KernelChecks:
                 lambda: ig.int8_mod_gemm_plain(ares[0], bres[0], moduli=mods),
                 timed=prod_t,
             )
-            self.compare(
+            second = self.compare(
                 "int8_mod_gemm",
                 lambda: ig.int8_mod_gemm_batched(ares[0], bres[0], moduli=mods, carry=first),
                 lambda: ig.int8_mod_gemm_plain(ares[0], bres[0], moduli=mods, carry=first),
             )
             if timed:
                 self.int_mm_yardstick("int8_mod_gemm", [(ares[0][l], bres[0][l]) for l in range(n_mod)])
+            f8 = self.f8
+            fp8_t = None
+            if timed:
+                fp8_t = (label, n_mod * (m * k + k * n + m * n), 8 * n_mod * m * n * k, FP8_OPS_S, 3)
+            for carry, want in ((None, first), (first, second)):
+                got = self.compare(
+                    "fp8_mod_gemm",
+                    lambda: f8.fp8_mod_gemm_batched(ares[0], bres[0], moduli=mods, carry=carry),
+                    lambda: f8.fp8_mod_gemm_plain(ares[0], bres[0], moduli=mods, carry=carry),
+                    timed=fp8_t if carry is None else None,
+                )
+                self.same_as_int8("fp8_mod_gemm", got, want, f"{label} carry={carry is not None}")
+            if timed:
+                self.scaled_mm_yardstick("fp8_mod_gemm", [(ares[0][l], bres[0][l]) for l in range(n_mod)])
             e_res = first[None]
 
         for out_dd in (complex_, not complex_):
@@ -357,9 +472,9 @@ def end_to_end_cpu_parity(rng, dev, GemmPolicy, linalg):
     for routine, dtype in ROUTINES.items():
         a = phi_matrix(rng, (SMALL, SMALL), PHI, dtype)
         b = phi_matrix(rng, (SMALL, SMALL), PHI, dtype)
-        cases = [(ex, mode, "karatsuba") for ex in ("kernel", "fused") for mode in ("fast", "accu")]
+        cases = [(ex, mode, "karatsuba") for ex in ("kernel", "fused", "fp8") for mode in ("fast", "accu")]
         if np.issubdtype(dtype, np.complexfloating):
-            cases += [("fused", "fast", "block_a"), ("fused", "fast", "block_b")]
+            cases += [(ex, "fast", form) for ex in ("fused", "fp8") for form in ("block_a", "block_b")]
         for execution, mode, formulation in cases:
             pol = GemmPolicy(execution=execution, mode=mode, formulation=formulation)
             on_card = getattr(linalg, routine)(a, b, policy=pol)
@@ -466,6 +581,38 @@ def fused_main_path(results, GemmPolicy, linalg, kernels):
     return counts
 
 
+def fp8_main_path(results, GemmPolicy, linalg, kernels):
+    """Phase 3(d): the same GEMMs on the fp8 execution: 4 launches each (the
+    product on an e4m3 kernel), bitwise equal to the kernel execution."""
+    pol = GemmPolicy(execution="fp8", mode="fast")
+    kernels.reset_launches()
+    for r in results:
+        routine, size, a, b = r["routine"], r["size"], r["a"], r["b"]
+        fn = getattr(linalg, routine)
+        reps = 3 if size < BIG else 1
+        before = kernels.launch_counts()
+        first = fn(a, b, policy=pol)
+        y, ms = timed_calls(lambda: fn(a, b, policy=pol), reps)
+        product = "fp8_karatsuba" if a.is_complex() else "fp8_mod_gemm"
+        check_launches(kernels, before, {"residue_cast": 2, product: 1, "crt_garner": 1}, 1 + reps,
+                       f"fp8 {routine} {size}^3")
+        if not (torch.equal(first, r["y"]) and torch.equal(y, r["y"])):
+            raise AssertionError(f"fp8 {routine} {size}^3: differs from the kernel execution")
+        rel = rel_error(y, a, b)
+        flops = r["flops"]
+        print(f"  {routine} {size}^3 fast fp8: emulated_ms={ms:.3f} ({flops / ms / 1e9:.2f} TFLOPS) "
+              f"kernel_execution_ms={r['kernel_ms']:.3f} torch.matmul_ms={r['native_ms']:.3f} "
+              f"speedup_vs_cublas={r['native_ms'] / ms:.3f} rel_err={rel:.3e} launches/GEMM=4 "
+              f"== kernel execution, bitwise", flush=True)
+        if not rel < 1e-4:
+            raise AssertionError(f"fp8 {routine} {size}^3: relative error {rel} >= 1e-4")
+    counts = kernels.launch_counts()
+    for name in ("fp8_mod_gemm", "fp8_karatsuba"):
+        if counts[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the fp8 main path")
+    return counts
+
+
 def serving(rng, dev, GemmPolicy, linalg, kernels):
     """Phase 4: prepared-weight serving on the fused and kernel executions."""
     expect = {
@@ -473,12 +620,14 @@ def serving(rng, dev, GemmPolicy, linalg, kernels):
         ("fused", False): {"fused_mod_gemm": 1},
         ("kernel", True): {"residue_cast": 1, "karatsuba_fused": 1, "crt_garner": 1},
         ("kernel", False): {"residue_cast": 1, "int8_mod_gemm": 1, "crt_garner": 1},
+        ("fp8", True): {"residue_cast": 1, "fp8_karatsuba": 1, "crt_garner": 1},
+        ("fp8", False): {"residue_cast": 1, "fp8_mod_gemm": 1, "crt_garner": 1},
     }
     for routine, dtype in (("zgemm", np.complex128), ("sgemm", np.float32)):
         w = torch.from_numpy(phi_matrix(rng, (SERVE_N, SERVE_N), PHI, dtype)).to(dev)
         xs = [torch.from_numpy(phi_matrix(rng, (m, SERVE_N), PHI, dtype)).to(dev) for m in SERVE_M]
         fn = getattr(linalg, routine)
-        for execution in ("fused", "kernel"):
+        for execution in ("fused", "kernel", "fp8"):
             pol = GemmPolicy(backend=linalg.BACKEND_FOR_DTYPE[np.dtype(dtype).name],
                              execution=execution, mode="fast")
             t0 = time.perf_counter()
@@ -488,6 +637,8 @@ def serving(rng, dev, GemmPolicy, linalg, kernels):
             print(f"  {routine} W {SERVE_N}x{SERVE_N} {execution}: prepare_weights ms={prep_ms:.3f}", flush=True)
             fn(xs[0], prepared, policy=pol)  # warm-up
             for x in xs:
+                if execution == "fp8" and x.shape[0] not in SERVE_M_FP8:
+                    continue
                 before = kernels.launch_counts()
                 y, ms = timed_calls(lambda: fn(x, prepared, policy=pol), 1)
                 check_launches(kernels, before, expect[execution, w.is_complex()], 1,
@@ -533,6 +684,7 @@ def main() -> int:
     checks.megakernels(RAGGED, np.complex64, 14, chunk_limit=RAGGED_CHUNK, timed=False)
     checks.megakernels((MAIN, MAIN, MAIN), np.float32, 8, chunk_limit=1 << 17, timed=True)
     checks.megakernels((MAIN, MAIN, MAIN), np.complex128, 14, chunk_limit=1 << 17, timed=True)
+    checks.fp8_worst_case()
     torch.cuda.synchronize()
     print(f"  all {len(KERNELS)} kernels equal their plain versions", flush=True)
 
@@ -546,12 +698,17 @@ def main() -> int:
     print("phase 3c: fused main path", flush=True)
     fused_counts = fused_main_path(results, GemmPolicy, linalg, kernels)
     print(f"  fused main-path launches: {fused_counts}", flush=True)
+
+    print("phase 3d: fp8 main path", flush=True)
+    fp8_counts = fp8_main_path(results, GemmPolicy, linalg, kernels)
+    print(f"  fp8 main-path launches: {fp8_counts}", flush=True)
     del results
     torch.cuda.empty_cache()
 
     print("phase 4: prepared serving", flush=True)
     serving(rng, dev, GemmPolicy, linalg, kernels)
 
+    launches = {"kernel": counts, "fused": fused_counts, "fp8": fp8_counts}
     record = []
     for name, replaces in KERNELS.items():
         r = checks.record[name]
@@ -560,7 +717,7 @@ def main() -> int:
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": (fused_counts if name.startswith("fused") else counts)[name],
+            "launches": launches[PATH_OF[name]][name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -568,6 +725,7 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": None,
             "int_mm_ms": r.get("int_mm_ms"),
+            "scaled_mm_ms": r.get("scaled_mm_ms"),
             "kernel_path_ms": r.get("kernel_path_ms"),
             "shape": r["shape"],
         })

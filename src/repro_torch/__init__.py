@@ -5,9 +5,10 @@ This package imports torch and numpy, never JAX and nothing of `repro`.
 Its entry points are `repro_torch.linalg` (`matmul`, `sgemm`, `dgemm`,
 `cgemm`, `zgemm`, and `prepare_weights` for serving) under a
 `GemmPolicy(execution="kernel")`, which runs four hand-written Hopper
-kernels, or `GemmPolicy(execution="fused")`, which runs one of two
-megakernels per GEMM (`repro_torch.kernels`); they compute on the card
-unless the caller passes ``device="cpu"``.
+kernels, `GemmPolicy(execution="fused")`, which runs one of two
+megakernels per GEMM, or `GemmPolicy(execution="fp8")`, which runs the
+residue products on two e4m3 tensor-core kernels (`repro_torch.kernels`);
+they compute on the card unless the caller passes ``device="cpu"``.
 """
 from . import linalg
 from .core.policy import GemmPolicy

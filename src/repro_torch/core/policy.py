@@ -4,11 +4,12 @@ The port's copy of `repro.core.policy`, forward only.  A :class:`GemmPolicy`
 answers every static question about a matmul: *what* to emulate
 (``backend``), *how precisely* (``n_moduli``/``mode``/``method``/
 ``out_dtype``), *which complex strategy* (``formulation``/``n_block``) and
-*where* to run it (``execution``).  The port runs ``execution="kernel"``
-(four hand-written kernels, 4 launches per GEMM at any N) and
-``execution="fused"`` (one megakernel launch per GEMM).  `policy_matmul`
-also serves a weight prepared up front (`prepare_weights`, a right-side
-`PreparedOperand`).
+*where* to run it (``execution``).  The port runs three executions:
+``"kernel"`` (four hand-written kernels, 4 launches per GEMM at any N),
+``"fused"`` (one megakernel launch per GEMM) and ``"fp8"`` (the kernel
+execution's casts and Garner around residue products on the e4m3 engine,
+4 launches per GEMM).  `policy_matmul` also serves a weight prepared up
+front (`prepare_weights`, a right-side `PreparedOperand`).
 
 The reference's other knobs keep their names and defaults here and raise
 `NotImplementedError`, naming the ROADMAP item (queue 1) that brings them,
@@ -34,7 +35,6 @@ EXECUTIONS = ("reference", "kernel", "per_modulus_kernel", "sharded", "fp8", "fu
 _EXECUTION_ITEM = {
     "reference": "the 'reference' execution",
     "per_modulus_kernel": "the 'per_modulus_kernel' execution",
-    "fp8": "the 'fp8' execution",
     "sharded": "distributed + the 'sharded' execution",
 }
 
@@ -70,10 +70,10 @@ class GemmPolicy:
     (eqs. 11-12) or ``"accu"`` (eqs. 13-14).  ``method``: ``"auto"`` or
     ``"garner"`` on the kernel execution.  ``formulation``: ``"karatsuba"``,
     ``"block_a"`` or ``"block_b"``.  ``n_block``: an int, None or
-    ``"auto"``.  ``execution``: ``"kernel"`` and ``"fused"`` run; the
-    default ``"reference"`` and the others raise when used.  ``out_dtype``: result
-    dtype name.  ``mesh``, ``shard_axes``, ``calibration``, ``rtol`` and
-    ``mode="auto"`` raise.  The reference's ``interpret`` has no
+    ``"auto"``.  ``execution``: ``"kernel"``, ``"fused"`` and ``"fp8"``
+    run; the default ``"reference"`` and the others raise when used.
+    ``out_dtype``: result dtype name.  ``mesh``, ``shard_axes``,
+    ``calibration``, ``rtol`` and ``mode="auto"`` raise.  The reference's ``interpret`` has no
     counterpart: tensors on the CPU take the plain versions.
     """
 
@@ -129,11 +129,11 @@ class GemmPolicy:
 
     def execution_backend(self):
         """The residue backend of this policy's execution."""
-        if self.execution not in ("kernel", "fused"):
+        if self.execution in _EXECUTION_ITEM:
             raise _not_ported(f"execution={self.execution!r}", _EXECUTION_ITEM[self.execution])
-        from ..kernels.ops import FusedBackend, KernelBackend
+        from ..kernels.ops import Fp8Backend, FusedBackend, KernelBackend
 
-        return FusedBackend() if self.execution == "fused" else KernelBackend()
+        return {"kernel": KernelBackend, "fused": FusedBackend, "fp8": Fp8Backend}[self.execution]()
 
     def plan_for(self, m: int, k: int, n: int):
         """The `EmulationPlan` this policy runs for an (m,k)x(k,n) product."""
@@ -256,8 +256,9 @@ def prepare_weights(params, policy: GemmPolicy, device=None):
     Walks dicts, lists and tuples and replaces each ``"w"`` value (a
     tensor or numpy array of ndim >= 2, possibly stacked with leading
     layer dims, or a list/tuple of such stacks) by a right-side
-    `PreparedOperand` cast with the policy's execution backend, so prepared
-    serving stays bitwise equal to the unprepared run.  Fast mode stores
+    `PreparedOperand` cast with the policy's execution backend (the shared
+    kernel cast on every ported execution), so prepared serving stays
+    bitwise equal to the unprepared run.  Fast mode stores
     the weight's residue planes; accu mode its bound and the raw weight
     (`keep_raw`).  A native policy returns the tree unchanged.  `device`:
     where the prepared weights live (None = the card).

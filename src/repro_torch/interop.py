@@ -14,13 +14,17 @@
   `PreparedOperand` from a reference preparation's fields, so a weight
   prepared by the reference (for example one restored from a checkpoint)
   serves from the port with equal bits.
+
+Both follow the entry points' device rule: ``device=None`` means the card
+(`core.executor.resolve_device`), and without one they raise; pass
+``device="cpu"`` for tensors on the CPU.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .core.executor import PreparedOperand
+from .core.executor import PreparedOperand, resolve_device
 from .core.policy import GemmPolicy
 
 _DROPPED_FIELDS = ("interpret", "mesh", "shard_axes", "calibration")
@@ -31,7 +35,8 @@ def policy_from_fields(d: dict) -> GemmPolicy:
     return GemmPolicy(**fields)
 
 
-def tensors_from_numpy(tree, device="cpu"):
+def tensors_from_numpy(tree, device=None):
+    device = resolve_device(device)
     if isinstance(tree, np.ndarray):
         return torch.from_numpy(np.array(tree, order="C")).to(device)  # a copy: writable
     if isinstance(tree, (tuple, list)):
@@ -41,11 +46,12 @@ def tensors_from_numpy(tree, device="cpu"):
     return tree
 
 
-def prepared_from_numpy(fields: dict, device="cpu") -> PreparedOperand:
+def prepared_from_numpy(fields: dict, device=None) -> PreparedOperand:
     """The port's `PreparedOperand` from a reference preparation's fields:
     `side`, `n_moduli`, `n_limbs` and `dtype` (a name), and as numpy (or
     None) the arrays `e_scale`, `e_bound` and `raw` and the tuples
-    `residues` and `bound`, placed on `device`."""
+    `residues` and `bound`, placed on `device` (None: the card)."""
+    device = resolve_device(device)
     prep = object.__new__(PreparedOperand)
     prep.side = fields["side"]
     prep.n_moduli, prep.n_limbs = int(fields["n_moduli"]), int(fields["n_limbs"])

@@ -1,6 +1,6 @@
 """The port's Hopper kernels, each with its plain PyTorch version and a
 launch counter (`<wrapper>.launches`), and the residue backends."""
-from . import crt_garner, int8_mod_gemm, karatsuba_fused, residue_cast
+from . import crt_garner, fp8_mod_gemm, int8_mod_gemm, karatsuba_fused, residue_cast
 
 #: the wrapper of each kernel, by the name of its CUDA source
 WRAPPERS = {
@@ -10,6 +10,8 @@ WRAPPERS = {
     "crt_garner": crt_garner.crt_garner,
     "fused_mod_gemm": int8_mod_gemm.fused_mod_gemm,
     "fused_karatsuba": karatsuba_fused.fused_karatsuba_mod_gemm,
+    "fp8_mod_gemm": fp8_mod_gemm.fp8_mod_gemm_batched,
+    "fp8_karatsuba": fp8_mod_gemm.fp8_karatsuba_mod_gemm_batched,
 }
 
 

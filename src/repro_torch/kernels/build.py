@@ -29,9 +29,9 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = (
     "residue_cast", "int8_mod_gemm", "karatsuba_fused", "crt_garner",
-    "fused_mod_gemm", "fused_karatsuba",
+    "fused_mod_gemm", "fused_karatsuba", "fp8_mod_gemm", "fp8_karatsuba",
 )
-HEADERS = ("common.cuh", "gemm_tiles.cuh", "cast_tile.cuh", "garner_tile.cuh")
+HEADERS = ("common.cuh", "gemm_tiles.cuh", "fp8_tiles.cuh", "cast_tile.cuh", "garner_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,6 +1,7 @@
-// Tile machinery shared by the two residue-GEMM kernels (int8_mod_gemm.cu,
-// karatsuba_fused.cu): global -> register -> shared staging of int8 tiles,
-// and the tensor-core product of an int8 warp tile by mma.sync.
+// Tile machinery shared by the residue-GEMM kernels (int8_mod_gemm.cu,
+// karatsuba_fused.cu, and through fp8_tiles.cuh the two e4m3 kernels):
+// global -> register -> shared staging of int8 tiles, the 8-bit fragment
+// loads, and the tensor-core product of an int8 warp tile by mma.sync.
 //
 // Layout.  A planes are (m, k) row-major, B planes (k, n) row-major.  The
 // s8 `mma.sync.m16n8k32.row.col` wants both operands with k contiguous, so
@@ -115,6 +116,33 @@ __device__ __forceinline__ uint4 sum_mod16(uint4 x, uint4 y, int p, int half) {
                     sum_mod4(x.z, y.z, p, half), sum_mod4(x.w, y.w, p, half));
 }
 
+// The m16n8k32 A fragments of rows [wm, wm + 16 MT) at depth ks of a
+// [rows][LDS] tile (the 8-bit fragment layout, int8 and e4m3 alike).
+template <int MT>
+__device__ __forceinline__ void load_a_frags(uint32_t (&af)[MT][4], const int8_t* As, int wm,
+                                             int ks, int lane) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    ldmatrix_x4(af[mt], As + (wm + mt * 16 + (lane & 15)) * LDS + ks + (lane >> 4) * 16);
+  }
+}
+
+// The B fragments of columns [wn, wn + 8 NT) at depth ks of a [cols][LDS] tile.
+template <int NT>
+__device__ __forceinline__ void load_b_frags(uint32_t (&bf)[NT][2], const int8_t* Bs, int wn,
+                                             int ks, int lane) {
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np) {
+    uint32_t r[4];
+    const int q = lane >> 3;
+    ldmatrix_x4(r, Bs + (wn + (2 * np + (q >> 1)) * 8 + (lane & 7)) * LDS + ks + (q & 1) * 16);
+    bf[2 * np][0] = r[0];
+    bf[2 * np][1] = r[1];
+    bf[2 * np + 1][0] = r[2];
+    bf[2 * np + 1][1] = r[3];
+  }
+}
+
 // One warp's product over one staged BK slice: acc[MT][NT] += A rows
 // [wm, wm + 16 MT) . B cols [wn, wn + 8 NT), from [rows][LDS] tiles.
 template <int MT, int NT>
@@ -123,21 +151,9 @@ __device__ __forceinline__ void warp_tile_mma(int (&acc)[MT][NT][4], const int8_
 #pragma unroll
   for (int ks = 0; ks < BK; ks += 32) {
     uint32_t af[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      ldmatrix_x4(af[mt], As + (wm + mt * 16 + (lane & 15)) * LDS + ks + (lane >> 4) * 16);
-    }
+    load_a_frags<MT>(af, As, wm, ks, lane);
     uint32_t bf[NT][2];
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t r[4];
-      const int q = lane >> 3;
-      ldmatrix_x4(r, Bs + (wn + (2 * np + (q >> 1)) * 8 + (lane & 7)) * LDS + ks + (q & 1) * 16);
-      bf[2 * np][0] = r[0];
-      bf[2 * np][1] = r[1];
-      bf[2 * np + 1][0] = r[2];
-      bf[2 * np + 1][1] = r[3];
-    }
+    load_b_frags<NT>(bf, Bs, wn, ks, lane);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll

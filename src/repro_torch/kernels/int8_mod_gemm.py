@@ -51,14 +51,17 @@ def int8_mod_gemm_plain(a, b, *, moduli, carry=None):
 
 
 @functools.cache
-def _entry():
-    fn = build.library("int8_mod_gemm").int8_mod_gemm_launch
+def _entry(source: str):
+    fn = getattr(build.library(source), f"{source}_launch")
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(a, b, *, moduli, carry=None):
+def launch_mod_gemm(source: str, a, b, *, moduli, carry=None):
+    """Launch the residue-GEMM kernel of `source` (`int8_mod_gemm.cu` or
+    `fp8_mod_gemm.cu`, which share one C interface) into a new (N, m, n)
+    int8 output; the caller counts the launch."""
     n_mod, m, k = a.shape
     n = b.shape[-1]
     check_tensor("a", a, torch.int8, (n_mod, m, k))
@@ -67,13 +70,12 @@ def _launch(a, b, *, moduli, carry=None):
         check_tensor("carry", carry, torch.int8, (n_mod, m, n))
     out = torch.empty((n_mod, m, n), dtype=torch.int8, device=a.device)
     mod_arr = np.ascontiguousarray(moduli, dtype=np.int32)
-    status = _entry()(
+    status = _entry(source)(
         a.data_ptr(), b.data_ptr(), None if carry is None else carry.data_ptr(),
         out.data_ptr(), n_mod, m, n, k, mod_arr.ctypes.data,
         torch.cuda.current_stream(a.device).cuda_stream,
     )
-    build.check_launch("int8_mod_gemm", status)
-    int8_mod_gemm_batched.launches += 1
+    build.check_launch(source, status)
     return out
 
 
@@ -97,7 +99,9 @@ def int8_mod_gemm_batched(
         raise ValueError(f"k={k} exceeds the exact-int32 limit 2^17; chunk K")
     tensors = (a, b) if carry is None else (a, b, carry)
     if on_card(*tensors):
-        return _launch(a, b, moduli=moduli, carry=carry)
+        out = launch_mod_gemm("int8_mod_gemm", a, b, moduli=moduli, carry=carry)
+        int8_mod_gemm_batched.launches += 1
+        return out
     return int8_mod_gemm_plain(a, b, moduli=moduli, carry=carry)
 
 

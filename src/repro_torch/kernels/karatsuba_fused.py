@@ -65,14 +65,17 @@ def karatsuba_mod_gemm_plain(ar, ai, br, bi, *, moduli, carry=None):
 
 
 @functools.cache
-def _entry():
-    fn = build.library("karatsuba_fused").karatsuba_mod_gemm_launch
+def _entry(source: str, symbol: str):
+    fn = getattr(build.library(source), symbol)
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(ar, ai, br, bi, *, moduli, carry=None):
+def launch_karatsuba(source: str, symbol: str, ar, ai, br, bi, *, moduli, carry=None):
+    """Launch the Karatsuba residue-GEMM entry `symbol` of `source`
+    (`karatsuba_fused.cu` or `fp8_karatsuba.cu`, which share one C
+    interface) into a new (CR, CI) pair; the caller counts the launch."""
     n_mod, m, k = ar.shape
     n = br.shape[-1]
     for name, t in (("ar", ar), ("ai", ai)):
@@ -87,13 +90,12 @@ def _launch(ar, ai, br, bi, *, moduli, carry=None):
     cr = torch.empty((n_mod, m, n), dtype=torch.int8, device=ar.device)
     ci = torch.empty_like(cr)
     mod_arr = np.ascontiguousarray(moduli, dtype=np.int32)
-    status = _entry()(
+    status = _entry(source, symbol)(
         ar.data_ptr(), ai.data_ptr(), br.data_ptr(), bi.data_ptr(), *carry_ptrs,
         cr.data_ptr(), ci.data_ptr(), n_mod, m, n, k, mod_arr.ctypes.data,
         torch.cuda.current_stream(ar.device).cuda_stream,
     )
-    build.check_launch("karatsuba_fused", status)
-    karatsuba_mod_gemm_batched.launches += 1
+    build.check_launch(source, status)
     return cr, ci
 
 
@@ -127,7 +129,10 @@ def karatsuba_mod_gemm_batched(
         raise ValueError(f"k={k} exceeds the exact-int32 limit 2^17; chunk K")
     tensors = (ar, ai, br, bi) + (() if carry is None else tuple(carry))
     if on_card(*tensors):
-        return _launch(ar, ai, br, bi, moduli=moduli, carry=carry)
+        out = launch_karatsuba("karatsuba_fused", "karatsuba_mod_gemm_launch", ar, ai, br, bi,
+                               moduli=moduli, carry=carry)
+        karatsuba_mod_gemm_batched.launches += 1
+        return out
     return karatsuba_mod_gemm_plain(ar, ai, br, bi, moduli=moduli, carry=carry)
 
 

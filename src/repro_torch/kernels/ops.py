@@ -1,5 +1,5 @@
-"""The residue backends behind `GemmPolicy(execution="kernel")` and
-`GemmPolicy(execution="fused")`.
+"""The residue backends behind `GemmPolicy(execution="kernel")`,
+`GemmPolicy(execution="fused")` and `GemmPolicy(execution="fp8")`.
 
 Port of `repro.kernels.ops.KernelBackend`: it maps the executor's residue
 primitives onto the four kernels, one launch each whatever the modulus
@@ -12,6 +12,11 @@ double-single mode, summed in float64 as hi + lo.
 
 `FusedBackend` (execution="fused") runs each emulated GEMM as one launch
 of a megakernel instead (`fused_mod_gemm`, `fused_karatsuba_mod_gemm`).
+
+`Fp8Backend` (execution="fp8") keeps the casts and Garner and runs the
+residue products on the e4m3 engine (`fp8_mod_gemm_batched`,
+`fp8_karatsuba_mod_gemm_batched`): still 4 launches per GEMM, bitwise
+equal to execution="kernel".
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 from ..core import executor
 from ..core.executor import chunked_residue_matmul
 from ..core.moduli import CRTContext
+from . import fp8_mod_gemm
 from .common import split_scale_exponent
 from .crt_garner import crt_garner
 from .int8_mod_gemm import fused_mod_gemm, int8_mod_gemm_batched
@@ -131,3 +137,40 @@ class FusedBackend(KernelBackend):
             chunk_limit=self._chunk_limit(),
         )
         return (_dd_sum(cr), _dd_sum(ci)) if out_dd else (cr, ci)
+
+
+@dataclasses.dataclass(frozen=True)
+class Fp8Backend(KernelBackend):
+    """Residue backend running the modular products on the e4m3 engine
+    (execution="fp8", port of `repro.core.executor.Fp8Backend`).
+
+    The casts and the Garner reconstruction are the kernel backend's
+    (inherited, as the reference delegates them), so the plane layout and
+    the f32 quantization grade are the same; `residue_matmul` is one
+    `fp8_mod_gemm_batched` launch and `karatsuba` one
+    `fp8_karatsuba_mod_gemm_batched` launch per K-chunk of at most
+    `FP8_K_CHUNK_LIMIT` (the f32 digit sums' bound), the previous chunk's
+    residues folded in through the carry.  The digit split is exact, so the
+    whole pipeline is bitwise equal to execution="kernel".  The flags are
+    the reference's capability declarations.
+    """
+
+    fused_karatsuba = True
+    modulus_batched = True
+    engine = "fp8"
+
+    def residue_matmul(self, ares, bres, ctx: CRTContext):
+        return chunked_residue_matmul(
+            lambda a, b, carry: fp8_mod_gemm.fp8_mod_gemm_batched(
+                a, b, moduli=ctx.moduli, carry=carry),
+            ares, bres,
+            chunk_limit=fp8_mod_gemm.FP8_K_CHUNK_LIMIT,  # read at call time: tests patch it
+        )
+
+    def karatsuba(self, arr, ari, brr, bri, ctx: CRTContext):
+        return chunked_residue_matmul(
+            lambda a, b, carry: fp8_mod_gemm.fp8_karatsuba_mod_gemm_batched(
+                a[0], a[1], b[0], b[1], moduli=ctx.moduli, carry=carry),
+            (arr, ari), (brr, bri),
+            chunk_limit=fp8_mod_gemm.FP8_K_CHUNK_LIMIT,
+        )

@@ -9,9 +9,11 @@ Device rule: every entry point takes ``device=None``, which means
 ``"cuda"``.  Operands (tensors or numpy arrays) are moved to that device
 and the result is returned there.  Without a CUDA device it raises; it
 never computes on the CPU unless asked with ``device="cpu"``, which runs
-the kernels' plain PyTorch versions.  On the kernel and fused executions
-the d/zgemm results are float64-shaped but f32-grade, as in the reference:
-the residue cast quantizes through float32.
+the kernels' plain PyTorch versions.  Three executions run:
+``execution="kernel"`` (4 launches per GEMM), ``"fused"`` (1 megakernel
+launch) and ``"fp8"`` (4 launches, the products on the e4m3 engine), all
+bitwise equal.  On each of them the d/zgemm results are float64-shaped but
+f32-grade, as in the reference: the residue cast quantizes through float32.
 
 Prepared serving: `prepare_weights` casts the ``"w"`` weights of a param
 tree once; `matmul` and the BLAS wrappers accept such a right-side

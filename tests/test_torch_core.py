@@ -83,7 +83,7 @@ def test_scaling_exponents_bitwise(rng, mode, complex_):
     a, b = _scaling_operands(rng, complex_)
     for n in (7, 16):
         jc, tc = jmod.make_crt_context(n), tmod.make_crt_context(n)
-        ta, tb = tensors_from_numpy((a, b))
+        ta, tb = tensors_from_numpy((a, b), device="cpu")
         if complex_:
             jf = jscal.scale_fast_complex if mode == "fast" else jscal.scale_accurate_complex
             tf = tscal.scale_fast_complex if mode == "fast" else tscal.scale_accurate_complex
@@ -131,7 +131,7 @@ def test_expansion_bitwise(rng):
     a = rng.standard_normal(4096).astype(np.float32)
     b = rng.integers(-127, 128, 4096).astype(np.float32)
     c = rng.standard_normal(4096).astype(np.float32) * np.float32(1e-8)
-    ta, tb, tc = tensors_from_numpy((a, b, c))
+    ta, tb, tc = tensors_from_numpy((a, b, c), device="cpu")
     for want, got in zip(jex.two_prod(jnp.asarray(a), jnp.asarray(b)), tex.two_prod(ta, tb)):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     want = jex.dd_add(jnp.asarray(a), jnp.asarray(c), jnp.asarray(b), jnp.asarray(c))
@@ -149,6 +149,27 @@ def test_sym_mod_and_limbs_match(rng):
         )
     for bits in (10.0, 23.0, 71.5, 99.0):
         assert tres.num_limbs_for_bits(bits) == jres.num_limbs_for_bits(bits)
+
+
+def test_interop_default_device_is_the_card(monkeypatch):
+    """`tensors_from_numpy` and `prepared_from_numpy` place their tensors by
+    `resolve_device`, whose default is the card: without one they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: device=None places the tensors there")
+    import repro_torch.interop as interop
+
+    fields = {"side": "right", "n_moduli": 2, "n_limbs": 1, "dtype": "float32", "e_scale": None,
+              "e_bound": None, "raw": None, "residues": (np.zeros((2, 3, 4), np.int8),), "bound": ()}
+    cases = ((interop.tensors_from_numpy, np.zeros(3)), (interop.prepared_from_numpy, fields))
+    for convert, arg in cases:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            convert(arg)
+    asked = []
+    monkeypatch.setattr(interop, "resolve_device", lambda device: asked.append(device) or torch.device("cpu"))
+    for convert, arg in cases:
+        asked.clear()
+        convert(arg)
+        assert asked[0] is None
 
 
 def test_port_imports_no_jax():

@@ -49,7 +49,7 @@ def _scaled_operands(rng, shape, complex_, n):
     b = phi_matrix(rng, (k, n_cols), 0.5, dtype)
     ctx = tmod.make_crt_context(n)
     nl = tplan.n_limbs_for_ctx(ctx)
-    ta, tb = tensors_from_numpy((a, b))
+    ta, tb = tensors_from_numpy((a, b), device="cpu")
     if complex_:
         e_mu, e_nu = tscal.scale_fast_complex(ta.real, ta.imag, tb.real, tb.imag, ctx)
         xb = torch.stack([tb.real, tb.imag])
@@ -81,7 +81,7 @@ def test_fused_mod_gemm_matches_pallas(rng, n, out_dd, prepared, shape):
         jnp.asarray(e_nu.numpy()), jmod.make_crt_context(n), n_limbs=nl, out_dd=out_dd,
         b_res=jb_res, interpret=True,
     )
-    ta, tb = tensors_from_numpy((a, b))
+    ta, tb = tensors_from_numpy((a, b), device="cpu")
     got = fused_mod_gemm(
         ta, None if prepared else tb, e_mu, e_nu, tmod.make_crt_context(n), n_limbs=nl,
         out_dd=out_dd, b_res=b_res,
@@ -101,7 +101,7 @@ def test_fused_karatsuba_matches_pallas(rng, n, out_dd, prepared, shape):
         b_res=None if b_res is None else tuple(jnp.asarray(r.numpy()) for r in b_res),
         interpret=True,
     )
-    ta, tb = tensors_from_numpy((a, b))
+    ta, tb = tensors_from_numpy((a, b), device="cpu")
     tbb = (None, None) if prepared else (tb.real, tb.imag)
     got = fused_karatsuba_mod_gemm(
         ta.real, ta.imag, *tbb, e_mu, e_nu, tmod.make_crt_context(n), n_limbs=nl,
@@ -114,7 +114,7 @@ def test_fused_karatsuba_matches_pallas(rng, n, out_dd, prepared, shape):
 
 def test_megakernel_wrappers_check_their_operands(rng):
     a, b, e_mu, e_nu, planes, nl = _scaled_operands(rng, (8, 16, 4), False, 8)
-    ta, tb = tensors_from_numpy((a, b))
+    ta, tb = tensors_from_numpy((a, b), device="cpu")
     ctx = tmod.make_crt_context(8)
     with pytest.raises(ValueError, match="exactly one"):
         fused_mod_gemm(ta, tb, e_mu, e_nu, ctx, n_limbs=nl, b_res=planes[0])
@@ -147,7 +147,7 @@ def test_execute_plan_fused_matches_pallas(rng, dtype, mode, formulation):
     jp = jplan.make_plan(dtype, mode=mode, method="garner", formulation=formulation)
     tp = tplan.make_plan(np.dtype(dtype).name, mode=mode, method="garner", formulation=formulation)
     want = np.asarray(j_executor.execute_plan(jp, jnp.asarray(a), jnp.asarray(b), JFused(interpret=True)))
-    ta, tb = tensors_from_numpy((a, b))
+    ta, tb = tensors_from_numpy((a, b), device="cpu")
     got = t_executor.execute_plan(tp, ta, tb, tops.FusedBackend())
     np.testing.assert_array_equal(got.numpy(), want)
     kernel = t_executor.execute_plan(tp, ta, tb, tops.KernelBackend())

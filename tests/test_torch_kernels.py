@@ -44,7 +44,7 @@ def test_residue_cast_matches_pallas(rng, n, axis, shape):
     nl = n_limbs_for_ctx(ctx)
     x = phi_matrix(rng, shape, 0.5, np.float32)
     e = rng.integers(20, 40, size=shape[-2] if axis == 0 else shape[-1]).astype(np.int32)
-    tx, te = tensors_from_numpy((x, e))
+    tx, te = tensors_from_numpy((x, e), device="cpu")
     s1, s2 = split_scale_exponent(te)
     want = j_residue_cast(
         jnp.asarray(x), jnp.asarray(s1.numpy()), jnp.asarray(s2.numpy()),
@@ -64,7 +64,7 @@ def test_residue_cast_limbs_near_2_24(rng):
     x = (-0.25 * (1.0 - rng.integers(1, 2**12, size=(2, 8, 64)) * 2.0**-24)).astype(np.float32)
     x[1] *= -1
     e = np.full(64, 50, dtype=np.int32)
-    tx, te = tensors_from_numpy((x, e))
+    tx, te = tensors_from_numpy((x, e), device="cpu")
     s1, s2 = split_scale_exponent(te)
     got = tk.residue_cast.residue_cast(tx, s1, s2, moduli=ctx.moduli, n_limbs=nl, scale_axis=1).numpy()
     exact = np.empty_like(got)
@@ -92,7 +92,7 @@ def test_int8_mod_gemm_matches_pallas(rng, carry, n, m, k, nn):
         jnp.asarray(a), jnp.asarray(b), moduli=ctx.moduli,
         carry=None if c is None else jnp.asarray(c), interpret=True,
     )
-    ta, tb, tc = tensors_from_numpy((a, b, c))
+    ta, tb, tc = tensors_from_numpy((a, b, c), device="cpu")
     got = tk.int8_mod_gemm.int8_mod_gemm_batched(ta, tb, moduli=ctx.moduli, carry=tc)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -109,7 +109,8 @@ def test_karatsuba_matches_pallas(rng, carry, n, m, k, nn):
         carry=None if c is None else tuple(map(jnp.asarray, c)), interpret=True,
     )
     got = tk.karatsuba_fused.karatsuba_mod_gemm_batched(
-        *tensors_from_numpy((ar, ai, br, bi)), moduli=ctx.moduli, carry=tensors_from_numpy(c),
+        *tensors_from_numpy((ar, ai, br, bi), device="cpu"), moduli=ctx.moduli,
+        carry=tensors_from_numpy(c, device="cpu"),
     )
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
@@ -128,7 +129,7 @@ def test_crt_garner_matches_pallas(rng, out_dd, n, stacked):
     e_mu = rng.integers(20, 70, size=m).astype(np.int32)
     e_nu = rng.integers(20, 70, size=nn).astype(np.int32)
     want = j_crt_garner(*map(jnp.asarray, (res, e_mu, e_nu)), jc, out_dd=out_dd, interpret=True)
-    got = tk.crt_garner.crt_garner(*tensors_from_numpy((res, e_mu, e_nu)), tc, out_dd=out_dd)
+    got = tk.crt_garner.crt_garner(*tensors_from_numpy((res, e_mu, e_nu), device="cpu"), tc, out_dd=out_dd)
     assert got.dtype == torch.float32 and got.shape == want.shape
     np.testing.assert_array_equal(got.numpy().view(np.int32), np.asarray(want).view(np.int32))
 

@@ -112,12 +112,15 @@ def test_matmul_under_ambient_policy(rng):
     [
         {"execution": "reference"},
         {"execution": "per_modulus_kernel"},
-        {"execution": "fp8"},
+        {"execution": "fp8", "formulation": "auto"},
         {"execution": "kernel", "formulation": "auto"},
+        {"execution": "sharded"},
     ],
-    ids=["reference", "per_modulus_kernel", "fp8", "formulation-auto"],
+    ids=["reference", "per_modulus_kernel", "fp8", "formulation-auto", "sharded"],
 )
 def test_unported_executions_raise(rng, fields):
+    """Executions not ported raise; so does a knob not ported on one that is
+    (the fp8 case: `execution="fp8"` runs, `formulation="auto"` does not)."""
     a, b = _operands(rng, np.complex64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tl.cgemm(a, b, policy=repro_torch.GemmPolicy(**fields), device="cpu")

@@ -163,7 +163,7 @@ def test_reference_prepared_weight_serves_from_the_port(rng, dtype, mode):
     w = phi_matrix(rng, (FAST_K, FAST_N), 0.5, dtype)
     x = phi_matrix(rng, (FAST_M, FAST_K), 0.5, dtype)
     jw = j_prepare_weights({"w": w}, jpol)["w"]
-    tw = prepared_from_numpy(_fields(jw))
+    tw = prepared_from_numpy(_fields(jw), device="cpu")
     _assert_same_fields(tw, jw)
     want = np.asarray(repro.linalg.matmul(jnp.asarray(x), jw, policy=jpol))
     got = tl.matmul(x, tw, policy=tpol, device="cpu")
