@@ -11,8 +11,9 @@ It imports torch, numpy and `repro_torch` only.  Inputs come from
 Any mismatch or exception ends the run with a non-zero exit; no phase's
 failure is caught.
 
-1. Build the eight CUDA kernels from `src/repro_torch/kernels/csrc`, one
-   `nvcc` each, all at once.
+1. Build the nine CUDA sources of `src/repro_torch/kernels/csrc`, one
+   `nvcc` each, all at once, and print ptxas's registers and spills for
+   every compiled tile of the six GEMM kernels.
 2. Hold each kernel against its plain PyTorch version on the card, bitwise
    (`torch.equal`): the chain scale -> cast (rows and columns, S = 1 or 2)
    -> product (with and without carry) -> Garner (f32 and double-single) at
@@ -34,6 +35,17 @@ failure is caught.
    worst case m = n = 128, k = FP8_K_CHUNK_LIMIT = 2^16: planes of -120
    (the largest digits in every product), of alternating signs, and
    random; for the complex kernel AR = -120, AI = 0.
+   Every compiled tile of the six GEMM kernels (`kernels.common.
+   COMPILED_TILES`) against the plain version at the ragged shape: the
+   product kernels with and without carry, the megakernels with raw and
+   prepared B, chunk_limit 256 and 2^17; and at 4096^3 each non-default
+   tile against the default tile's output, bitwise, timed (CUDA events).
+   The launch-timing copy kernel (`launch_copy`) against `x.clone()` on an
+   (8, 128) f32 tile, bitwise; timed by CUDA events with the stream held
+   busy while the host enqueues (the device's time per launch), by CUDA
+   events paced by the host, by host wall time through its wrapper (what
+   the calibration measures), and `x.clone()` beside it (the library call
+   that computes the same function).
 3. End to end through `repro_torch.linalg`:
    (a) s/d/c/zgemm at 512^3, fast and accu, on `GemmPolicy(execution=
        "kernel")`, `execution="fused"` and `execution="fp8"` (complex also
@@ -42,7 +54,8 @@ failure is caught.
    (b) the kernel main path: s/d/c/zgemm at 4096^3 and zgemm at 8192^3,
        fast mode, `execution="kernel"`.  The launch counters are zeroed
        just before and read just after: each GEMM is exactly 4 launches
-       (cast, cast, product, reconstruct).  Times beside native
+       (cast, cast, product, reconstruct), which is also what the port's
+       `perfmodel.kernel_launch_count` says.  Times beside native
        `torch.matmul` in the same dtype (cuBLAS); relative error
        max|C - C_ref| / max|C_ref| against torch.matmul in
        float64/complex128 on the same operands must stay below 1e-4 (the
@@ -61,8 +74,19 @@ failure is caught.
    (complex128 and float32) on `fused` and on `kernel`, then three requests
    of m = 128, 1024 and 8192 rows each, and on `fp8` one request of m =
    1024: a fused request is 1 launch, a kernel or fp8 request 3 (cast,
-   product, Garner), each bitwise equal to the unprepared call of the same
-   execution.  Prints each request's time.
+   product, Garner; `kernel_launch_count(prepared=True)`), each bitwise
+   equal to the unprepared call of the same execution.  Prints each
+   request's time.
+5. Tuning: the port's `python -m repro_torch.tune` main in full mode (not
+   smoke) writes a calibration to a temporary file, the launch counters
+   zeroed just before and read just after (the copy kernel: 1 warm-up + 3
+   timed launches); prints the measured HW beside the GH200 preset and the
+   tuned tiles.  Then `GemmPolicy(calibration=path)` runs phase 3's
+   s/d/c/zgemm at 4096^3 on `kernel`, `fused` and `fp8`: each bitwise
+   equal to phase 3's uncalibrated output, with the launch counts of
+   `kernel_launch_count`, timed beside the uncalibrated run.  Prints the
+   plans `formulation="auto"` and `rtol=1e-6` / `mode="auto"` resolve to
+   for zgemm 4096^3 under the calibration and under the preset.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit from nvidia-smi, and {"ok": true, "device": {...}}.
@@ -71,8 +95,11 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -96,9 +123,13 @@ KERNELS = {
     "fused_karatsuba": "src/repro/kernels/karatsuba_fused.py:194",
     "fp8_mod_gemm": "src/repro/kernels/fp8_mod_gemm.py:85",
     "fp8_karatsuba": "src/repro/kernels/fp8_mod_gemm.py:171",
+    "launch_copy": "src/repro/tune/calibrate.py:138",
 }
 # the main path whose launch counts each kernel reports
 PATH_OF = {name: name.split("_")[0] if name.startswith(("fused", "fp8")) else "kernel" for name in KERNELS}
+PATH_OF["launch_copy"] = "tune"
+
+COPY_SHAPE = (8, 128)      # the calibration's launch-timing tile
 RAGGED = (257, 1000, 129)  # (m, k, n) off every tile multiple
 MAIN = 4096                # the main path's m = n = k
 BIG = 8192                 # the largest zgemm of the main path
@@ -135,6 +166,56 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps):
+    """Mean device milliseconds of `fn` over `reps` back-to-back runs, by CUDA
+    events, with the stream held busy (`torch.cuda._sleep`) while the host
+    enqueues them, so the host's launch path does not pace the device: for
+    a kernel too small to outlast its own launch."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms of device time, longer than the enqueueing
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def tile_label(tile) -> str:
+    return "x".join(str(x) for x in tile)
+
+
+TILE_RE = re.compile(r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E")
+
+
+def ptxas_tiles(logs):
+    """{source: {tile label: (most registers, most spill-store bytes, variants)}}
+    over every compiled variant (VEC, N bound, prepared) of each tile, from
+    the `-Xptxas -v` reports."""
+    out = {}
+    for name, log in logs.items():
+        entry, spill = None, 0
+        for line in log.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                entry, spill = m.group(1), 0
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spill = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry is not None:
+                t = TILE_RE.search(entry)
+                if t:
+                    label = tile_label(int(x) for x in t.groups()[:3])
+                    regs, spills, count = out.setdefault(name, {}).get(label, (0, 0, 0))
+                    out[name][label] = (max(regs, int(m.group(1))), max(spills, spill), count + 1)
+                entry = None
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -152,7 +233,93 @@ class KernelChecks:
         self.rng, self.dev = rng, dev
         self.mods = (residue_cast, int8_mod_gemm, karatsuba_fused, crt_garner)
         self.f8 = fp8_mod_gemm
+        from repro_torch.kernels.common import COMPILED_TILES, TILE_SOURCES
+
+        # the compiled tiles of each GEMM kernel, by the kernel's name
+        self.tiles_of = {name: COMPILED_TILES[slot] for slot, name in TILE_SOURCES.items()}
         self.record = {name: {"max_abs_err": 0.0} for name in KERNELS}
+        for name in self.tiles_of:
+            self.record[name]["tiles_ms"] = {}
+
+    def time_tile(self, name, tile, kernel, want, reps):
+        """A non-default tile of `name` at the main path's shape: its output
+        equal to the default tile's (`want`) bitwise, and its time."""
+        got = kernel()
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        if not all(torch.equal(g, w) for g, w in pairs):
+            raise AssertionError(f"{name} tile {tile}: differs from the default tile's output")
+        ms = cuda_ms(kernel, reps)
+        self.record[name]["tiles_ms"][tile_label(tile)] = ms
+        print(f"  {name} tile {tile_label(tile)}: ms={ms:.4f} == default tile, bitwise", flush=True)
+
+    def default_tile_ms(self, name):
+        """File the timed default run under its tile as well."""
+        self.record[name]["tiles_ms"][tile_label(self.tiles_of[name][0])] = self.record[name]["ms"]
+
+    def other_tiles(self, name):
+        return self.tiles_of[name][1:]
+
+    def tiles(self):
+        """Every compiled tile of the six GEMM kernels against its plain
+        version at RAGGED, bitwise: the product kernels with and without
+        carry, the megakernels with raw and prepared B at chunk_limit 256
+        and 2^17."""
+        from repro_torch.core.moduli import make_crt_context
+
+        _, ig, kf, _ = self.mods
+        f8 = self.f8
+        m, k, n = RAGGED
+        for n_mod, complex_ in ((8, False), (14, True)):
+            mods = make_crt_context(n_mod).moduli
+            if complex_:
+                ops = [self.residues(mods, shape) for shape in ((m, k), (m, k), (k, n), (k, n))]
+                carry = (self.residues(mods, (m, n)), self.residues(mods, (m, n)))
+                pairs = (("karatsuba_fused", kf.karatsuba_mod_gemm_batched, kf.karatsuba_mod_gemm_plain),
+                         ("fp8_karatsuba", f8.fp8_karatsuba_mod_gemm_batched, f8.fp8_karatsuba_mod_gemm_plain))
+            else:
+                ops = [self.residues(mods, (m, k)), self.residues(mods, (k, n))]
+                carry = self.residues(mods, (m, n))
+                pairs = (("int8_mod_gemm", ig.int8_mod_gemm_batched, ig.int8_mod_gemm_plain),
+                         ("fp8_mod_gemm", f8.fp8_mod_gemm_batched, f8.fp8_mod_gemm_plain))
+            for name, wrapper, plain in pairs:
+                for tile in self.tiles_of[name]:
+                    for c in (None, carry):
+                        self.compare(name, lambda: wrapper(*ops, moduli=mods, carry=c, tile=tile),
+                                     lambda: plain(*ops, moduli=mods, carry=c))
+                    print(f"  {name} tile {tile_label(tile)} {m}x{k}x{n} N={n_mod}: "
+                          f"== plain with and without carry, bitwise", flush=True)
+        for dtype, n_mod in ((np.float32, 8), (np.complex64, 14)):
+            for chunk_limit in (RAGGED_CHUNK, 1 << 17):
+                self.megakernels(RAGGED, dtype, n_mod, chunk_limit=chunk_limit, timed=False, all_tiles=True)
+
+    def launch_copy(self):
+        """The launch-timing copy kernel against x.clone() on the
+        calibration's tile, bitwise; timed by CUDA events, by host wall time
+        through the wrapper, and x.clone() beside it."""
+        from repro_torch.kernels import launch_copy as lc
+
+        x = torch.from_numpy(self.rng.standard_normal(COPY_SHAPE).astype(np.float32)).to(self.dev)
+        nbytes = 2 * x.numel() * 4
+        self.compare("launch_copy", lambda: lc.launch_copy(x), lambda: lc.launch_copy_plain(x),
+                     timed=(f"{COPY_SHAPE[0]}x{COPY_SHAPE[1]} f32", nbytes, 0, INT8_OPS_S, 1000))
+        rec = self.record["launch_copy"]
+        rec["events_ms"] = rec["ms"]  # paced by the host's launch path
+        rec["ms"] = device_ms(lambda: lc.launch_copy(x), 1000)
+        rec["plain_ms"] = device_ms(lambda: lc.launch_copy_plain(x), 1000)
+        rec["library_ms"] = device_ms(lambda: x.clone(), 1000)
+        print(f"  launch_copy: device ms with the queue held full={rec['ms']:.5f} "
+              f"plain (x.clone()) ms={rec['plain_ms']:.5f}", flush=True)
+        walls = []
+        for _ in range(200):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lc.launch_copy(x)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        rec["wall_ms"] = statistics.median(walls) * 1e3
+        print(f"  launch_copy: wall_ms through the wrapper (median of 200, synchronized)="
+              f"{rec['wall_ms']:.5f} library_ms (x.clone(), queue held full)={rec['library_ms']:.5f}",
+              flush=True)
 
     def compare(self, name, kernel, plain, *, timed=None):
         """Run `kernel()` and `plain()`, require equal bits, and with `timed`
@@ -250,12 +417,14 @@ class KernelChecks:
         print(f"  {name}: torch._int_mm over the same {len(planes)} int8 products "
               f"(product-only yardstick) ms={ms:.4f}", flush=True)
 
-    def megakernels(self, shape, dtype, n_mod, *, chunk_limit, timed):
+    def megakernels(self, shape, dtype, n_mod, *, chunk_limit, timed, all_tiles=False):
         """The megakernel of `dtype` against its plain version, bitwise, with
         raw and prepared B and f32 and double-single output, and against the
-        4-launch kernel composition of the same GEMM.  With `timed`, the main
-        path's variant (raw B; double-single for complex) is timed beside its
-        plain version and that composition (the yardstick)."""
+        4-launch kernel composition of the same GEMM; with `all_tiles`, for
+        every compiled tile.  With `timed`, the main path's variant (raw B;
+        double-single for complex) is timed beside its plain version and
+        that composition (the yardstick), and each other tile is timed and
+        held to the default tile's output."""
         from repro_torch.core import scaling
         from repro_torch.core.moduli import make_crt_context
         from repro_torch.core.plan import n_limbs_for_ctx
@@ -294,42 +463,57 @@ class KernelChecks:
             out = cg.crt_garner(e_res, e_mu, e_nu, ctx, out_dd=out_dd)
             return (out[0], out[1]) if complex_ else out[0]
 
-        for out_dd in (False, True):
-            for prepared in (False, True):
-                main = not prepared and out_dd == complex_
-                if timed and not main:
-                    continue
-                kw = dict(n_limbs=nl, out_dd=out_dd, chunk_limit=chunk_limit)
-                if complex_:
-                    rhs = (None, None) if prepared else (xb[0], xb[1])
-                    kw["b_res"] = (planes[0], planes[1]) if prepared else None
-                    kernel = lambda: kf.fused_karatsuba_mod_gemm(xa[0], xa[1], *rhs, e_mu, e_nu, ctx, **kw)  # noqa: E731
-                    plain = lambda: kf.fused_karatsuba_mod_gemm_plain(xa[0], xa[1], *rhs, e_mu, e_nu, ctx, **kw)  # noqa: E731
-                    ops = 3 * 2 * n_mod * m * n * k
-                    b_bytes = 2 * (n_mod * k * n if prepared else 4 * k * n)
-                    nbytes = 2 * 4 * m * k + b_bytes + 2 * (8 if out_dd else 4) * m * n
-                else:
-                    rhs = None if prepared else xb[0]
-                    kw["b_res"] = planes[0] if prepared else None
-                    kernel = lambda: ig.fused_mod_gemm(xa[0], rhs, e_mu, e_nu, ctx, **kw)  # noqa: E731
-                    plain = lambda: ig.fused_mod_gemm_plain(xa[0], rhs, e_mu, e_nu, ctx, **kw)  # noqa: E731
-                    ops = 2 * n_mod * m * n * k
-                    b_bytes = n_mod * k * n if prepared else 4 * k * n
-                    nbytes = 4 * m * k + b_bytes + (8 if out_dd else 4) * m * n
-                t = None
-                if timed:
-                    t = (f"{label} out_dd={out_dd}", nbytes + 16 * (m + n), ops, INT8_OPS_S, 3)
-                got = self.compare(name, kernel, plain, timed=t)
-                if not prepared:
-                    want = composed(out_dd)
-                    pairs = zip(got, want) if complex_ else [(got, want)]
-                    if not all(torch.equal(g, w) for g, w in pairs):
-                        raise AssertionError(f"{name} {label}: the megakernel differs from the 4-launch composition")
-                if timed:
-                    ms = cuda_ms(lambda: composed(out_dd), 3)
-                    self.record[name]["kernel_path_ms"] = ms
-                    print(f"  {name}: the same GEMM as 4 launches (cast, cast, product, Garner; "
-                          f"the yardstick) ms={ms:.4f}", flush=True)
+        for tile in self.tiles_of[name] if all_tiles else (None,):
+            for out_dd in (False, True):
+                for prepared in (False, True):
+                    main = not prepared and out_dd == complex_
+                    if timed and not main:
+                        continue
+                    kw = dict(n_limbs=nl, out_dd=out_dd, chunk_limit=chunk_limit)
+                    if complex_:
+                        rhs = (None, None) if prepared else (xb[0], xb[1])
+                        kw["b_res"] = (planes[0], planes[1]) if prepared else None
+
+                        def kernel(tile=tile, rhs=rhs, kw=kw):
+                            return kf.fused_karatsuba_mod_gemm(xa[0], xa[1], *rhs, e_mu, e_nu, ctx,
+                                                               tile=tile, **kw)
+
+                        plain = lambda: kf.fused_karatsuba_mod_gemm_plain(xa[0], xa[1], *rhs, e_mu, e_nu, ctx, **kw)  # noqa: E731
+                        ops = 3 * 2 * n_mod * m * n * k
+                        b_bytes = 2 * (n_mod * k * n if prepared else 4 * k * n)
+                        nbytes = 2 * 4 * m * k + b_bytes + 2 * (8 if out_dd else 4) * m * n
+                    else:
+                        rhs = None if prepared else xb[0]
+                        kw["b_res"] = planes[0] if prepared else None
+
+                        def kernel(tile=tile, rhs=rhs, kw=kw):
+                            return ig.fused_mod_gemm(xa[0], rhs, e_mu, e_nu, ctx, tile=tile, **kw)
+
+                        plain = lambda: ig.fused_mod_gemm_plain(xa[0], rhs, e_mu, e_nu, ctx, **kw)  # noqa: E731
+                        ops = 2 * n_mod * m * n * k
+                        b_bytes = n_mod * k * n if prepared else 4 * k * n
+                        nbytes = 4 * m * k + b_bytes + (8 if out_dd else 4) * m * n
+                    t = None
+                    if timed:
+                        t = (f"{label} out_dd={out_dd}", nbytes + 16 * (m + n), ops, INT8_OPS_S, 3)
+                    got = self.compare(name, kernel, plain, timed=t)
+                    if not prepared:
+                        want = composed(out_dd)
+                        pairs = zip(got, want) if complex_ else [(got, want)]
+                        if not all(torch.equal(g, w) for g, w in pairs):
+                            raise AssertionError(f"{name} {label} tile {tile}: the megakernel differs "
+                                                 "from the 4-launch composition")
+                    if all_tiles:
+                        print(f"  {name} tile {tile_label(tile)} {label} chunk_limit={chunk_limit} "
+                              f"out_dd={out_dd} prepared={prepared}: == plain, bitwise", flush=True)
+                    if timed:
+                        self.default_tile_ms(name)
+                        for other in self.other_tiles(name):
+                            self.time_tile(name, other, lambda: kernel(tile=other), got, 1)
+                        ms = cuda_ms(lambda: composed(out_dd), 3)
+                        self.record[name]["kernel_path_ms"] = ms
+                        print(f"  {name}: the same GEMM as 4 launches (cast, cast, product, Garner; "
+                              f"the yardstick) ms={ms:.4f}", flush=True)
 
     def chain(self, shape, dtype, n_mod, timed):
         from repro_torch.core import scaling
@@ -393,6 +577,10 @@ class KernelChecks:
                 lambda: kf.karatsuba_mod_gemm_plain(arr, ari, brr, bri, moduli=mods, carry=first),
             )
             if timed:
+                self.default_tile_ms("karatsuba_fused")
+                for tile in self.other_tiles("karatsuba_fused"):
+                    self.time_tile("karatsuba_fused", tile, lambda: kf.karatsuba_mod_gemm_batched(
+                        arr, ari, brr, bri, moduli=mods, tile=tile), first, 5)
                 self.int_mm_yardstick("karatsuba_fused", [
                     (x[l], y[l]) for l in range(n_mod) for x, y in ((arr, brr), (ari, bri), (arr, bri))])
             f8 = self.f8
@@ -409,6 +597,10 @@ class KernelChecks:
                 )
                 self.same_as_int8("fp8_karatsuba", got, want, f"{label} carry={carry is not None}")
             if timed:
+                self.default_tile_ms("fp8_karatsuba")
+                for tile in self.other_tiles("fp8_karatsuba"):
+                    self.time_tile("fp8_karatsuba", tile, lambda: f8.fp8_karatsuba_mod_gemm_batched(
+                        arr, ari, brr, bri, moduli=mods, tile=tile), first, 3)
                 pf, half, _ = plane_mod_params(mods, self.dev)
                 s_a, s_b = (sym_mod_f32(x.float() + y.float(), pf, half).to(torch.int8)
                             for x, y in ((arr, ari), (brr, bri)))  # the F operands
@@ -431,6 +623,10 @@ class KernelChecks:
                 lambda: ig.int8_mod_gemm_plain(ares[0], bres[0], moduli=mods, carry=first),
             )
             if timed:
+                self.default_tile_ms("int8_mod_gemm")
+                for tile in self.other_tiles("int8_mod_gemm"):
+                    self.time_tile("int8_mod_gemm", tile, lambda: ig.int8_mod_gemm_batched(
+                        ares[0], bres[0], moduli=mods, tile=tile), first, 5)
                 self.int_mm_yardstick("int8_mod_gemm", [(ares[0][l], bres[0][l]) for l in range(n_mod)])
             f8 = self.f8
             fp8_t = None
@@ -445,6 +641,10 @@ class KernelChecks:
                 )
                 self.same_as_int8("fp8_mod_gemm", got, want, f"{label} carry={carry is not None}")
             if timed:
+                self.default_tile_ms("fp8_mod_gemm")
+                for tile in self.other_tiles("fp8_mod_gemm"):
+                    self.time_tile("fp8_mod_gemm", tile, lambda: f8.fp8_mod_gemm_batched(
+                        ares[0], bres[0], moduli=mods, tile=tile), first, 3)
                 self.scaled_mm_yardstick("fp8_mod_gemm", [(ares[0][l], bres[0][l]) for l in range(n_mod)])
             e_res = first[None]
 
@@ -502,11 +702,31 @@ def timed_calls(fn, reps):
     return y, (time.perf_counter() - t0) / reps * 1e3
 
 
-def check_launches(kernels, before, expect, calls, what):
+def check_launches(kernels, before, expect, calls, what, model):
+    """The launches since `before`: `expect` per GEMM by kernel, and in all
+    `model` per GEMM, the port's `perfmodel.kernel_launch_count`."""
     delta = {k: v - before[k] for k, v in kernels.launch_counts().items()}
     want = {k: expect.get(k, 0) * calls for k in delta}
     if delta != want:
         raise AssertionError(f"{what}: launches {delta} for {calls} GEMMs, expected {want}")
+    if sum(delta.values()) != model * calls:
+        raise AssertionError(f"{what}: {sum(delta.values())} launches for {calls} GEMMs, "
+                             f"perfmodel.kernel_launch_count says {model} each")
+
+
+def model_launches(execution, n_moduli, complex_, prepared=False):
+    """`perfmodel.kernel_launch_count` of one fast-mode GEMM on `execution`."""
+    from repro_torch.core import perfmodel
+
+    return perfmodel.kernel_launch_count(
+        n_moduli, "karatsuba" if complex_ else "real", modulus_batched=True,
+        fused_karatsuba=True, prepared=prepared, fused=execution == "fused")
+
+
+def default_moduli(tensor):
+    from repro_torch.core.plan import default_n_moduli
+
+    return default_n_moduli(tensor.dtype, "fast")
 
 
 def main_path(rng, dev, GemmPolicy, linalg, kernels):
@@ -533,7 +753,8 @@ def main_path(rng, dev, GemmPolicy, linalg, kernels):
         fn(a, b, policy=pol)
         y, emu_ms = timed_calls(lambda: fn(a, b, policy=pol), reps)
         check_launches(kernels, before, expect_complex if a.is_complex() else expect_real,
-                       1 + reps, f"{routine} {size}^3")
+                       1 + reps, f"{routine} {size}^3",
+                       model_launches("kernel", default_moduli(a), a.is_complex()))
         native_ms = cuda_ms(lambda: torch.matmul(a, b), reps)
         rel = rel_error(y, a, b)
         flops = (8 if a.is_complex() else 2) * size**3
@@ -563,7 +784,9 @@ def fused_main_path(results, GemmPolicy, linalg, kernels):
         first = fn(a, b, policy=pol)
         y, ms = timed_calls(lambda: fn(a, b, policy=pol), reps)
         expect = {"fused_karatsuba" if a.is_complex() else "fused_mod_gemm": 1}
-        check_launches(kernels, before, expect, 1 + reps, f"fused {routine} {size}^3")
+        check_launches(kernels, before, expect, 1 + reps, f"fused {routine} {size}^3",
+                       model_launches("fused", default_moduli(a), a.is_complex()))
+        r["fused_ms"] = ms
         if not (torch.equal(first, r["y"]) and torch.equal(y, r["y"])):
             raise AssertionError(f"fused {routine} {size}^3: differs from the kernel execution")
         rel = rel_error(y, a, b)
@@ -595,7 +818,9 @@ def fp8_main_path(results, GemmPolicy, linalg, kernels):
         y, ms = timed_calls(lambda: fn(a, b, policy=pol), reps)
         product = "fp8_karatsuba" if a.is_complex() else "fp8_mod_gemm"
         check_launches(kernels, before, {"residue_cast": 2, product: 1, "crt_garner": 1}, 1 + reps,
-                       f"fp8 {routine} {size}^3")
+                       f"fp8 {routine} {size}^3",
+                       model_launches("fp8", default_moduli(a), a.is_complex()))
+        r["fp8_ms"] = ms
         if not (torch.equal(first, r["y"]) and torch.equal(y, r["y"])):
             raise AssertionError(f"fp8 {routine} {size}^3: differs from the kernel execution")
         rel = rel_error(y, a, b)
@@ -642,13 +867,86 @@ def serving(rng, dev, GemmPolicy, linalg, kernels):
                 before = kernels.launch_counts()
                 y, ms = timed_calls(lambda: fn(x, prepared, policy=pol), 1)
                 check_launches(kernels, before, expect[execution, w.is_complex()], 1,
-                               f"{routine} {execution} prepared m={x.shape[0]}")
+                               f"{routine} {execution} prepared m={x.shape[0]}",
+                               model_launches(execution, default_moduli(w), w.is_complex(), prepared=True))
                 direct, direct_ms = timed_calls(lambda: fn(x, w, policy=pol), 1)
                 if not torch.equal(y, direct):
                     raise AssertionError(f"{routine} {execution} m={x.shape[0]}: prepared differs from unprepared")
                 print(f"  {routine} {execution} request m={x.shape[0]}: prepared_ms={ms:.3f} "
                       f"unprepared_ms={direct_ms:.3f} launches={sum(expect[execution, w.is_complex()].values())} "
                       f"== unprepared, bitwise", flush=True)
+
+
+def path_expect(execution, complex_):
+    """The launches of one fast-mode GEMM on `execution`, by kernel."""
+    if execution == "fused":
+        return {"fused_karatsuba" if complex_ else "fused_mod_gemm": 1}
+    product = {"kernel": "karatsuba_fused" if complex_ else "int8_mod_gemm",
+               "fp8": "fp8_karatsuba" if complex_ else "fp8_mod_gemm"}[execution]
+    return {"residue_cast": 2, product: 1, "crt_garner": 1}
+
+
+def tuning(results, GemmPolicy, linalg, kernels):
+    """Phase 5: the tune entry point in full mode, then phase 3's 4096^3
+    GEMMs under the calibration it wrote.  Returns the tune run's launch
+    counts."""
+    from repro_torch.core import perfmodel
+    from repro_torch.tune import __main__ as tune_cli
+    from repro_torch.tune.cache import load_calibration
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(pathlib.Path(tmp) / "calibration.json")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        tune_cli.main(["--out", path, "-v"])
+        tune_s = time.perf_counter() - t0
+        tune_counts = kernels.launch_counts()
+        print(f"  python -m repro_torch.tune (full) ran {tune_s:.2f} s; launches {tune_counts}", flush=True)
+        if tune_counts["launch_copy"] != 4:
+            raise AssertionError(f"the calibration launched the copy kernel {tune_counts['launch_copy']} "
+                                 "times, expected 1 warm-up + 3")
+        cal = load_calibration(path)
+        if cal is None:
+            raise AssertionError("the calibration the tune entry point wrote does not load")
+        preset = perfmodel.GH200
+        for field in ("mem_bw", "int8_ops", "fp8_ops", "native_c64", "native_c128", "gemm_launch_s"):
+            print(f"  hw {field}: measured={getattr(cal.hw, field):.6e} "
+                  f"GH200 preset={getattr(preset, field):.6e}", flush=True)
+        for key, tile in cal.blocks:
+            print(f"  tuned {key}: {tile_label(tile)}", flush=True)
+
+        for execution in ("kernel", "fused", "fp8"):
+            pol = GemmPolicy(execution=execution, mode="fast", calibration=path)
+            kernels.reset_launches()
+            for r in results:
+                routine, size, a, b = r["routine"], r["size"], r["a"], r["b"]
+                fn = getattr(linalg, routine)
+                before = kernels.launch_counts()
+                first = fn(a, b, policy=pol)
+                y, ms = timed_calls(lambda: fn(a, b, policy=pol), 3)
+                what = f"calibrated {execution} {routine} {size}^3"
+                check_launches(kernels, before, path_expect(execution, a.is_complex()), 4, what,
+                               model_launches(execution, default_moduli(a), a.is_complex()))
+                if not (torch.equal(first, r["y"]) and torch.equal(y, r["y"])):
+                    raise AssertionError(f"{what}: differs from the uncalibrated output")
+                base_ms = r["kernel_ms" if execution == "kernel" else f"{execution}_ms"]
+                print(f"  {routine} {size}^3 fast {execution} calibrated: emulated_ms={ms:.3f} "
+                      f"uncalibrated_ms={base_ms:.3f} launches/GEMM="
+                      f"{sum(path_expect(execution, a.is_complex()).values())} "
+                      f"== uncalibrated, bitwise", flush=True)
+
+        for label, calibration in (("GH200 preset", None), ("calibrated", path)):
+            for execution in ("kernel", "fused", "fp8"):
+                base = dict(backend="ozaki2_c128", execution=execution, calibration=calibration)
+                auto = GemmPolicy(formulation="auto", **base).plan_for(MAIN, MAIN, MAIN)
+                adaptive = GemmPolicy(mode="auto", rtol=1e-6, **base).plan_for(MAIN, MAIN, MAIN)
+                print(f"  zgemm {MAIN}^3 {execution} under the {label}: formulation='auto' -> "
+                      f"{auto.formulation}; rtol=1e-6 mode='auto' -> mode={adaptive.mode} "
+                      f"n_moduli={adaptive.n_moduli}", flush=True)
+            hw = cal.hw if calibration else preset
+            print(f"  select_engine zgemm {MAIN}^3 N=14 under the {label}: "
+                  f"{perfmodel.select_engine(MAIN, MAIN, MAIN, 14, hw=hw)}", flush=True)
+    return tune_counts
 
 
 def main() -> int:
@@ -666,8 +964,14 @@ def main() -> int:
     print("phase 1: build", flush=True)
     t0 = time.perf_counter()
     logs = build.build_all()
-    print(f"  built {len(logs)} kernels in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"  built {len(logs)} kernel sources in {time.perf_counter() - t0:.2f} s", flush=True)
+    ptxas = ptxas_tiles(logs)
     for name, log in logs.items():
+        if name in ptxas:
+            for label, (regs, spill, count) in ptxas[name].items():
+                print(f"  {name} tile {label}: at most {regs} registers and {spill} bytes of spill "
+                      f"stores over its {count} compiled variants", flush=True)
+            continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
@@ -680,11 +984,11 @@ def main() -> int:
     checks.chain(RAGGED, np.complex64, 14, timed=False)
     checks.chain((MAIN, MAIN, MAIN), np.float32, 8, timed=True)
     checks.chain((MAIN, MAIN, MAIN), np.complex128, 14, timed=True)
-    checks.megakernels(RAGGED, np.float32, 8, chunk_limit=RAGGED_CHUNK, timed=False)
-    checks.megakernels(RAGGED, np.complex64, 14, chunk_limit=RAGGED_CHUNK, timed=False)
+    checks.tiles()
     checks.megakernels((MAIN, MAIN, MAIN), np.float32, 8, chunk_limit=1 << 17, timed=True)
     checks.megakernels((MAIN, MAIN, MAIN), np.complex128, 14, chunk_limit=1 << 17, timed=True)
     checks.fp8_worst_case()
+    checks.launch_copy()
     torch.cuda.synchronize()
     print(f"  all {len(KERNELS)} kernels equal their plain versions", flush=True)
 
@@ -702,13 +1006,16 @@ def main() -> int:
     print("phase 3d: fp8 main path", flush=True)
     fp8_counts = fp8_main_path(results, GemmPolicy, linalg, kernels)
     print(f"  fp8 main-path launches: {fp8_counts}", flush=True)
-    del results
+    results = [r for r in results if r["size"] == MAIN]
     torch.cuda.empty_cache()
 
     print("phase 4: prepared serving", flush=True)
     serving(rng, dev, GemmPolicy, linalg, kernels)
 
-    launches = {"kernel": counts, "fused": fused_counts, "fp8": fp8_counts}
+    print("phase 5: tuning", flush=True)
+    tune_counts = tuning(results, GemmPolicy, linalg, kernels)
+
+    launches = {"kernel": counts, "fused": fused_counts, "fp8": fp8_counts, "tune": tune_counts}
     record = []
     for name, replaces in KERNELS.items():
         r = checks.record[name]
@@ -723,7 +1030,11 @@ def main() -> int:
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
-            "library_ms": None,
+            "library_ms": r.get("library_ms"),
+            "wall_ms": r.get("wall_ms"),
+            "events_ms": r.get("events_ms"),
+            "tiles_ms": r.get("tiles_ms"),
+            "ptxas": ptxas.get(name),
             "int_mm_ms": r.get("int_mm_ms"),
             "scaled_mm_ms": r.get("scaled_mm_ms"),
             "kernel_path_ms": r.get("kernel_path_ms"),

@@ -9,6 +9,8 @@ kernels, `GemmPolicy(execution="fused")`, which runs one of two
 megakernels per GEMM, or `GemmPolicy(execution="fp8")`, which runs the
 residue products on two e4m3 tensor-core kernels (`repro_torch.kernels`);
 they compute on the card unless the caller passes ``device="cpu"``.
+`python -m repro_torch.tune` calibrates the card and tunes the kernels'
+tiles for the policies' automatic choices (`repro_torch.tune`).
 """
 from . import linalg
 from .core.policy import GemmPolicy

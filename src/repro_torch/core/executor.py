@@ -515,6 +515,13 @@ def gemm_prepared(prep: PreparedOperand, x: torch.Tensor, method: str = "garner"
         out_dtype=out_dtype or x.dtype,
         n_block=n_block,
         shape=(m, k, n),
+        # the 'auto' selections must charge launches and engine operations
+        # as the executing backend issues them, or a prepared run could pick
+        # another formulation than the unprepared run it must bit-match
+        fused_karatsuba=getattr(backend, "fused_karatsuba", False),
+        modulus_batched=getattr(backend, "modulus_batched", False),
+        megakernel=getattr(backend, "megakernel", False),
+        engine=getattr(backend, "engine", "int8"),
     )
     nl = prep.n_limbs
     other_side = "left" if prep.side == "right" else "right"

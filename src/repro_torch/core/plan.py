@@ -4,8 +4,12 @@ The port's copy of `repro.core.plan`.  An :class:`EmulationPlan` holds the
 static decisions of one emulated GEMM — dtype class, number of CRT moduli,
 scaling mode, reconstruction method, complex formulation, output blocking —
 and nothing data-dependent.  `make_plan` applies the paper's per-dtype
-moduli defaults.  The perfmodel-priced ``formulation="auto"`` is not ported
-yet (ROADMAP queue 1, "Performance model + accuracy bounds").
+moduli defaults and — when the caller passes ``formulation="auto"`` /
+``n_block="auto"`` with a shape hint — consults the SIII-C performance
+model (`core/perfmodel.py`) to pick the complex formulation and the
+output-column blocking, charging launches per the executing backend's
+capabilities (`fused_karatsuba`, `modulus_batched`, `megakernel`,
+`engine`), which `GemmPolicy.plan_for` reads from the execution.
 """
 from __future__ import annotations
 
@@ -79,6 +83,9 @@ class EmulationPlan:
     formulation: str           # 'real' | 'karatsuba' | 'block_a' | 'block_b'
     n_block: int | None        # output-column blocking (paper SIII-A)
     out_dtype: str             # result dtype name
+    rtol: float | None = None  # declared accuracy contract (metadata only:
+    # the tolerance an adaptive policy resolved this plan for; never read by
+    # the executor)
 
     @property
     def is_complex(self) -> bool:
@@ -113,12 +120,28 @@ def make_plan(
     out_dtype=None,
     n_block=None,
     shape: tuple[int, int, int] | None = None,
+    hw=None,
+    fused_karatsuba: bool = False,
+    modulus_batched: bool = False,
+    megakernel: bool = False,
+    comm_s: float = 0.0,
+    engine: str = "int8",
+    rtol: float | None = None,
 ) -> EmulationPlan:
     """Build an :class:`EmulationPlan` from user-facing knobs.
 
-    formulation: for complex plans 'karatsuba' | 'block_a' | 'block_b'.
+    formulation: for complex plans 'karatsuba' | 'block_a' | 'block_b' |
+      'auto' (perfmodel-driven, needs `shape`).
     n_block: int, None, or 'auto' (the paper's 8192 blocking, balanced;
-    needs the (m, k, n) `shape` hint).
+      needs the (m, k, n) `shape` hint).
+    hw: `perfmodel.HW` target for 'auto' (default `perfmodel.default_hw()`:
+      the active calibration's measured card, else the GH200 preset).
+    fused_karatsuba / modulus_batched / megakernel / engine: how the
+      executing backend launches (the Karatsuba triple in one launch, all N
+      planes in one launch, the whole GEMM in one launch, the residue
+      products on 'int8' or 'fp8'), which the 'auto' selection prices.
+    comm_s: a sharded execution's collective cost, folded into the totals.
+    rtol: the declared componentwise tolerance (metadata on the plan).
     """
     dt = dtype_name(dtype)
     if mode not in ("fast", "accu"):
@@ -138,10 +161,9 @@ def make_plan(
     else:
         formulation = formulation or "karatsuba"
         if formulation == "auto":
-            raise NotImplementedError(
-                "formulation='auto' needs the performance model, which the "
-                "port does not have yet (ROADMAP queue 1, 'Performance model "
-                "+ accuracy bounds'); pick karatsuba, block_a or block_b"
+            formulation = _auto_formulation(
+                shape, int(n_moduli), mode, dt, hw, fused_karatsuba,
+                modulus_batched, megakernel, comm_s, engine,
             )
         if formulation not in COMPLEX_FORMULATIONS:
             raise ValueError(f"unknown complex formulation {formulation!r}")
@@ -161,6 +183,31 @@ def make_plan(
         formulation=formulation,
         n_block=n_block,
         out_dtype=out_dt,
+        rtol=rtol,
+    )
+
+
+def _auto_formulation(shape, n_moduli, mode, dt, hw, fused_karatsuba=False,
+                      modulus_batched=False, megakernel=False, comm_s=0.0, engine="int8"):
+    from . import perfmodel
+
+    if shape is None:
+        raise ValueError(
+            "formulation='auto' needs the (m, k, n) shape hint to consult "
+            "the performance model; pass shape= or pick a formulation"
+        )
+    m, k, n = shape
+    prec = "c" if dt == "complex64" else "z"
+    return perfmodel.select_formulation(
+        m, n, k, n_moduli,
+        hw=hw or perfmodel.default_hw(),
+        mode=mode,
+        prec=prec,
+        karatsuba_launches=1 if fused_karatsuba else 3,
+        modulus_batched=modulus_batched,
+        megakernel=megakernel,
+        comm_s=comm_s,
+        engine=engine,
     )
 
 

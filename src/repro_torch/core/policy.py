@@ -11,12 +11,21 @@ execution's casts and Garner around residue products on the e4m3 engine,
 4 launches per GEMM).  `policy_matmul` also serves a weight prepared up
 front (`prepare_weights`, a right-side `PreparedOperand`).
 
+The automatic choices run as in the reference: ``formulation="auto"`` and
+``n_block="auto"`` through the performance model (`core/perfmodel.py`),
+``rtol`` / ``mode="auto"`` through the accuracy bounds (`core/accuracy.py`,
+`resolve_adaptive`), both priced against `perfmodel.default_hw()`: the
+measured card under a `repro_torch.tune` calibration (``calibration=`` or
+an ambient `use_calibration`), else the GH200 preset.  The calibration's
+tuned tiles are what the kernels launch.
+
 The reference's other knobs keep their names and defaults here and raise
 `NotImplementedError`, naming the ROADMAP item (queue 1) that brings them,
 when a value other than the default asks for them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Literal
 
@@ -69,11 +78,16 @@ class GemmPolicy:
     (None: the paper's per-(dtype, mode) default).  ``mode``: ``"fast"``
     (eqs. 11-12) or ``"accu"`` (eqs. 13-14).  ``method``: ``"auto"`` or
     ``"garner"`` on the kernel execution.  ``formulation``: ``"karatsuba"``,
-    ``"block_a"`` or ``"block_b"``.  ``n_block``: an int, None or
+    ``"block_a"``, ``"block_b"`` or ``"auto"`` (the strategy the
+    performance model prices fastest).  ``n_block``: an int, None or
     ``"auto"``.  ``execution``: ``"kernel"``, ``"fused"`` and ``"fp8"``
     run; the default ``"reference"`` and the others raise when used.
-    ``out_dtype``: result dtype name.  ``mesh``, ``shard_axes``,
-    ``calibration``, ``rtol`` and ``mode="auto"`` raise.  The reference's ``interpret`` has no
+    ``out_dtype``: result dtype name.  ``mode="auto"`` (needs ``rtol``) and
+    ``rtol``: the cheapest (mode, n_moduli) whose proven error bound meets
+    the tolerance (`resolve_adaptive`).  ``calibration``: the path of a
+    `repro_torch.tune` cache pinned for this policy's 'auto' decisions and
+    kernel tiles (an unfit file warns once and changes nothing).  ``mesh``
+    and ``shard_axes`` raise.  The reference's ``interpret`` has no
     counterpart: tensors on the CPU take the plain versions.
     """
 
@@ -95,6 +109,13 @@ class GemmPolicy:
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.mode not in ("fast", "accu", "auto"):
             raise ValueError(f"unknown mode {self.mode!r}; expected 'fast', 'accu' or 'auto'")
+        if self.rtol is not None and not float(self.rtol) > 0.0:
+            raise ValueError(f"rtol must be > 0, got {self.rtol!r}")
+        if self.mode == "auto" and self.rtol is None:
+            raise ValueError(
+                "mode='auto' picks the cheapest (mode, n_moduli) pair meeting "
+                "an accuracy target — pass GemmPolicy(rtol=...) to declare it"
+            )
         if self.execution not in EXECUTIONS:
             raise ValueError(f"unknown execution {self.execution!r}; expected one of {EXECUTIONS}")
         if self.execution != "reference" and self.method not in ("auto", "garner"):
@@ -102,13 +123,8 @@ class GemmPolicy:
                 f"execution={self.execution!r} reconstructs via the Garner "
                 f"kernel only; method={self.method!r} is reference-path only"
             )
-        if self.rtol is not None or self.mode == "auto":
-            raise _not_ported("accuracy-adaptive rtol / mode='auto'",
-                              "'Performance model + accuracy bounds'")
         if self.mesh is not None or self.shard_axes is not None:
             raise _not_ported("a mesh", "'Distributed + sharded execution'")
-        if self.calibration is not None:
-            raise _not_ported("a calibration file", "'Tuning'")
         if self.out_dtype is not None:
             object.__setattr__(self, "out_dtype", dtype_name(self.out_dtype))
 
@@ -135,21 +151,130 @@ class GemmPolicy:
 
         return {"kernel": KernelBackend, "fused": FusedBackend, "fp8": Fp8Backend}[self.execution]()
 
+    def resolved_calibration(self):
+        """The `repro_torch.tune.Calibration` this policy's decisions read:
+        the pinned ``calibration`` file (memoized; warns once and yields None
+        when unfit), else the ambient `use_calibration` / `set_calibration`
+        one, else None (presets + default tiles)."""
+        from ..tune.cache import current_calibration, load_calibration_cached
+
+        if self.calibration is not None:
+            return load_calibration_cached(self.calibration)
+        return current_calibration()
+
+    def _calibration_scope(self):
+        """Context manager activating the pinned calibration file (a no-op
+        without one: the ambient scope then applies as it is).  Entered
+        around plan selection AND the kernel launches, so the perfmodel's
+        `default_hw` and the kernels' `resolve_blocks` both see it."""
+        if self.calibration is None:
+            return contextlib.nullcontext()
+        from ..tune.cache import load_calibration_cached, use_calibration
+
+        cal = load_calibration_cached(self.calibration)
+        if cal is None:
+            return contextlib.nullcontext()
+        return use_calibration(cal)
+
+    @property
+    def is_adaptive(self) -> bool:
+        """True when (mode, n_moduli) are resolved per call: ``mode='auto'``,
+        or ``rtol`` with no pinned ``n_moduli`` (see :meth:`resolve_adaptive`)."""
+        return self.backend != "native" and (
+            self.mode == "auto" or (self.rtol is not None and self.n_moduli is None)
+        )
+
+    def resolve_adaptive(self, m: int, k: int, n: int, *, stats=None):
+        """Resolve ``rtol`` / ``mode='auto'`` to a concrete policy.
+
+        Returns ``self`` unchanged when nothing is adaptive.  Otherwise the
+        admissible (mode, n_moduli) pairs come from the arXiv:2602.02549
+        bound calculator (`core.accuracy`): ``n_moduli=None`` resolves via
+        `min_moduli_for`, a pinned ``n_moduli`` is validated against
+        `rel_bound`; and `perfmodel.select_mode` picks the cheapest pair on
+        this machine (the calibration's measured card when one is active).
+        ``stats``: an optional `core.accuracy.GemmStats` probe of the
+        operands that tightens the bound.  The returned policy keeps
+        ``rtol``.
+        """
+        if not self.is_adaptive:
+            return self
+        from . import accuracy, perfmodel
+
+        dtype = dtype_name(self.compute_dtype)
+        form = self.formulation if self.is_complex else None
+        modes = ("fast", "accu") if self.mode == "auto" else (self.mode,)
+        cands, reasons = [], []
+        for mode in modes:
+            if self.n_moduli is not None:
+                bound = accuracy.rel_bound(
+                    dtype, mode, self.n_moduli, k, formulation=form,
+                    stats=stats, out_dtype=self.out_dtype,
+                )
+                if self.rtol is not None and bound > self.rtol:
+                    reasons.append(
+                        f"{mode}: bound {bound:g} at the pinned "
+                        f"n_moduli={self.n_moduli} exceeds rtol"
+                    )
+                    continue
+                cands.append((mode, self.n_moduli))
+            else:
+                try:
+                    cands.append((mode, accuracy.min_moduli_for(
+                        self.rtol, dtype, k=k, mode=mode, formulation=form,
+                        stats=stats, out_dtype=self.out_dtype,
+                    )))
+                except ValueError as e:
+                    reasons.append(f"{mode}: {e}")
+        if not cands:
+            raise ValueError(
+                f"no (mode, n_moduli) meets rtol={self.rtol:g} for "
+                f"backend={self.backend!r} at k={k}: " + "; ".join(reasons)
+            )
+        prec = {"float32": "s", "float64": "d", "complex64": "c", "complex128": "z"}[dtype]
+        with self._calibration_scope():
+            mode, n_moduli = perfmodel.select_mode(
+                m, n, k, cands, prec=prec,
+                engine="fp8" if self.execution == "fp8" else "int8",
+            )
+        if (mode, n_moduli) == (self.mode, self.n_moduli):
+            return self  # already concrete (and re-validated): fixed point
+        return dataclasses.replace(self, mode=mode, n_moduli=n_moduli)
+
     def plan_for(self, m: int, k: int, n: int):
-        """The `EmulationPlan` this policy runs for an (m,k)x(k,n) product."""
+        """The `EmulationPlan` this policy runs for an (m,k)x(k,n) product.
+
+        Selected inside the policy's calibration scope, so the 'auto'
+        selections of `make_plan` price against the calibration's measured
+        card when one is active, and charge launches and engine operations
+        as this execution's backend issues them.  An adaptive policy
+        (``rtol`` / ``mode='auto'``) resolves its concrete (mode, n_moduli)
+        first, statically here; `policy_matmul` probes concrete operands
+        and resolves before reaching this point.
+        """
         if self.backend == "native":
             raise ValueError("native policy has no emulation plan")
-        self.execution_backend()  # raises for an execution not ported yet
-        return make_plan(
-            self.compute_dtype,
-            n_moduli=self.n_moduli,
-            mode=self.mode,
-            method=self.resolved_method,
-            formulation=self.formulation if self.is_complex else None,
-            out_dtype=self.out_dtype,
-            n_block=self.n_block,
-            shape=(m, k, n),
-        )
+        if self.is_adaptive:
+            resolved = self.resolve_adaptive(m, k, n)
+            if resolved is not self:
+                return resolved.plan_for(m, k, n)
+        with self._calibration_scope():
+            be = self.execution_backend()  # raises for an execution not ported yet
+            return make_plan(
+                self.compute_dtype,
+                n_moduli=self.n_moduli,
+                mode=self.mode,
+                method=self.resolved_method,
+                formulation=self.formulation if self.is_complex else None,
+                out_dtype=self.out_dtype,
+                n_block=self.n_block,
+                shape=(m, k, n),
+                fused_karatsuba=getattr(be, "fused_karatsuba", False),
+                modulus_batched=getattr(be, "modulus_batched", False),
+                megakernel=getattr(be, "megakernel", False),
+                engine=getattr(be, "engine", "int8"),
+                rtol=self.rtol,
+            )
 
 
 NATIVE = GemmPolicy()
@@ -170,7 +295,10 @@ def emulated_matmul(x: torch.Tensor, w: torch.Tensor, policy: GemmPolicy) -> tor
                           "'torch.autograd.Function backward'")
     ct = policy.compute_dtype
     plan = policy.plan_for(x.shape[-2], x.shape[-1], w.shape[-1])
-    y = run_plan(plan, x.to(ct), w.to(ct), policy.execution_backend())
+    # launch under the pinned calibration (a no-op without one), so the
+    # kernels' `resolve_blocks` launches the policy's tuned tiles
+    with policy._calibration_scope():
+        y = run_plan(plan, x.to(ct), w.to(ct), policy.execution_backend())
     return _real_cast(y, policy.out_dtype or x.dtype)
 
 
@@ -183,21 +311,28 @@ def _prepared_matmul(x: torch.Tensor, w: PreparedOperand, policy: GemmPolicy) ->
             "prepared-weight matmuls are inference-only; differentiate through "
             "raw weights (emulated_matmul) instead"
         )
-    y = gemm_prepared(
-        w,
-        x.to(policy.compute_dtype),
-        method=policy.resolved_method,
-        formulation=policy.formulation,
-        out_dtype=policy.out_dtype,
-        n_block=policy.n_block,
-        backend=policy.execution_backend(),
-        mode=policy.mode,
-    )
+    with policy._calibration_scope():
+        y = gemm_prepared(
+            w,
+            x.to(policy.compute_dtype),
+            method=policy.resolved_method,
+            formulation=policy.formulation,
+            out_dtype=policy.out_dtype,
+            n_block=policy.n_block,
+            backend=policy.execution_backend(),
+            mode=policy.mode,
+        )
     return _real_cast(y, policy.out_dtype or x.dtype)
 
 
-def _check_prepared(w: PreparedOperand, policy: GemmPolicy) -> None:
-    """Raise when a prepared weight does not match the calling policy."""
+def _check_prepared(w: PreparedOperand, policy: GemmPolicy) -> GemmPolicy:
+    """The policy resolved for a prepared weight; raises when the weight
+    does not match it.
+
+    An adaptive policy resolves *statically* here — no operand probe, and
+    the canonical pricing shape (m := n) of `prepare_weights` — so a weight
+    prepared by the same policy always matches; drift raises instead of
+    returning wrong answers."""
     if policy.backend == "native":
         raise ValueError(
             "prepared weights require an emulated (ozaki2_*) policy "
@@ -205,23 +340,26 @@ def _check_prepared(w: PreparedOperand, policy: GemmPolicy) -> None:
         )
     if w.side != "right":
         raise ValueError("policy_matmul expects a side='right' prepared weight")
+    k, n = w.operand_shape
+    policy = policy.resolve_adaptive(n, k, n)
     if policy.mode == "accu" and w.raw is None:
         raise ValueError(
             "accu-mode prepared matmuls re-cast from the raw operand "
             "(the accurate exponents couple both operands); re-prepare "
             "with prepare_weights(accu policy) / keep_raw=True"
         )
+    adaptive = " (adaptive resolution)" if policy.rtol is not None else ""
     if w.mode != policy.mode:
         raise ValueError(
             f"prepared weight was prepared for mode={w.mode!r} but the "
-            f"policy resolves to mode={policy.mode!r}; re-prepare with "
-            "prepare_weights(policy)"
+            f"policy resolves to mode={policy.mode!r}{adaptive}; re-prepare "
+            "with prepare_weights(policy)"
         )
     expect = policy.n_moduli or default_n_moduli(policy.compute_dtype, policy.mode)
     if w.n_moduli != expect:
         raise ValueError(
             f"prepared weight has n_moduli={w.n_moduli} but the policy "
-            f"resolves to {expect}; re-prepare with prepare_weights(policy)"
+            f"resolves to {expect}{adaptive}; re-prepare with prepare_weights(policy)"
         )
     if w.dtype != dtype_name(policy.compute_dtype):
         raise ValueError(
@@ -229,6 +367,7 @@ def _check_prepared(w: PreparedOperand, policy: GemmPolicy) -> None:
             f"computes in {dtype_name(policy.compute_dtype)}; "
             "re-prepare with prepare_weights(policy)"
         )
+    return policy
 
 
 def policy_matmul(x: torch.Tensor, w, policy: GemmPolicy) -> torch.Tensor:
@@ -237,7 +376,7 @@ def policy_matmul(x: torch.Tensor, w, policy: GemmPolicy) -> torch.Tensor:
     `w` may be a raw tensor or a right-side `PreparedOperand` (weights cast
     once, amortized across calls: the serving path)."""
     if isinstance(w, PreparedOperand):
-        _check_prepared(w, policy)
+        policy = _check_prepared(w, policy)
         n = w.operand_shape[1]
         lead = x.shape[:-1]
         y = _prepared_matmul(x.reshape(-1, x.shape[-1]), w, policy)
@@ -246,7 +385,15 @@ def policy_matmul(x: torch.Tensor, w, policy: GemmPolicy) -> torch.Tensor:
         y = torch.matmul(x, w)
         return y if policy.out_dtype is None else y.to(DTYPES[policy.out_dtype])
     lead = x.shape[:-1]
-    y = emulated_matmul(x.reshape(-1, x.shape[-1]), w, policy)
+    x2 = x.reshape(-1, x.shape[-1])
+    if policy.is_adaptive:
+        # a cheap dynamic-range probe of the operands tightens the bound
+        # (possibly fewer moduli); either way provably within rtol
+        from .accuracy import probe_operands
+
+        policy = policy.resolve_adaptive(
+            x2.shape[0], x2.shape[1], w.shape[-1], stats=probe_operands(x2, w))
+    y = emulated_matmul(x2, w, policy)
     return y.reshape(*lead, w.shape[-1])
 
 
@@ -267,7 +414,6 @@ def prepare_weights(params, policy: GemmPolicy, device=None):
         return params
     cast_backend = policy.execution_backend()
     ct = policy.compute_dtype
-    n_moduli = policy.n_moduli or default_n_moduli(ct, policy.mode)
 
     def is_weight_leaf(val):
         if isinstance(val, np.ndarray):  # a checkpoint restore may hand numpy
@@ -282,9 +428,13 @@ def prepare_weights(params, policy: GemmPolicy, device=None):
         """Rewrite one "w" value: a weight, or a list/tuple of stacked
         weights; the "w" context runs through the sequence nesting."""
         if is_weight_leaf(val):
+            # adaptive policies resolve statically per weight, with the
+            # canonical pricing shape (m := n) the prepared matmul uses
+            k, n = int(val.shape[-2]), int(val.shape[-1])
+            pol = policy.resolve_adaptive(n, k, n)
             return PreparedOperand(
-                torch.as_tensor(val).to(ct), n_moduli, side="right", backend=cast_backend,
-                keep_raw=policy.mode == "accu", device=device,
+                torch.as_tensor(val).to(ct), pol.n_moduli or default_n_moduli(ct, pol.mode),
+                side="right", backend=cast_backend, keep_raw=pol.mode == "accu", device=device,
             )
         if isinstance(val, (list, tuple)):
             return type(val)(prep(v) for v in val)

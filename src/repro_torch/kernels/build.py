@@ -29,7 +29,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = (
     "residue_cast", "int8_mod_gemm", "karatsuba_fused", "crt_garner",
-    "fused_mod_gemm", "fused_karatsuba", "fp8_mod_gemm", "fp8_karatsuba",
+    "fused_mod_gemm", "fused_karatsuba", "fp8_mod_gemm", "fp8_karatsuba", "launch_copy",
 )
 HEADERS = ("common.cuh", "gemm_tiles.cuh", "fp8_tiles.cuh", "cast_tile.cuh", "garner_tile.cuh")
 NVCC_FLAGS = (
@@ -81,11 +81,18 @@ def _finish(name: str, job) -> None:
 
 def build_all() -> dict[str, str]:
     """Compile every stale source, one `nvcc` each, all at once.  Returns
-    the `-Xptxas -v` report (registers, shared memory, spills) by name."""
+    the `-Xptxas -v` report (registers, shared memory, spills) by name;
+    raises after all have finished if any failed, with every failure's log."""
     jobs = {name: _start(name) for name in SOURCES}
+    failures = []
     for name, job in jobs.items():
         if job is not None:
-            _finish(name, job)
+            try:
+                _finish(name, job)
+            except RuntimeError as e:
+                failures.append(str(e))
+    if failures:
+        raise RuntimeError("\n".join(failures))
     return {name: library_path(name).with_suffix(".log").read_text() for name in SOURCES}
 
 

@@ -170,3 +170,84 @@ def split_scale_exponent(e: torch.Tensor, bias: int = 0):
     e1 = torch.div(et, 2, rounding_mode="floor")
     e2 = et - e1
     return exp2_vector(e1).to(torch.float32), exp2_vector(e2).to(torch.float32)
+
+
+# ------------------------------------------------------- GEMM kernel tiles
+
+#: The block tiles (bm, bn, bk) each GEMM kernel compiles, by the
+#: (family, dtype class) of `tune.cache.block_key`; the first of each is
+#: the kernel's default, the tile it ran before it had alternatives.  A
+#: tile changes which threads add which exact products, never the bits.
+#: The CUDA sources instantiate exactly these (their `REPRO_TILE` lists).
+COMPILED_TILES = {
+    ("kernel", "real"): ((128, 128, 64), (128, 128, 128), (64, 128, 64), (128, 64, 64)),
+    ("kernel", "complex"): ((128, 64, 64), (64, 128, 64), (64, 64, 64)),
+    ("fused", "real"): ((64, 64, 64), (128, 64, 64)),
+    ("fused", "complex"): ((64, 64, 64), (64, 32, 64)),
+    ("fp8", "real"): ((128, 64, 64), (64, 64, 64)),
+    ("fp8", "complex"): ((128, 64, 64), (64, 64, 64)),
+}
+
+#: the CUDA source of each (family, dtype class)
+TILE_SOURCES = {
+    ("kernel", "real"): "int8_mod_gemm",
+    ("kernel", "complex"): "karatsuba_fused",
+    ("fused", "real"): "fused_mod_gemm",
+    ("fused", "complex"): "fused_karatsuba",
+    ("fp8", "real"): "fp8_mod_gemm",
+    ("fp8", "complex"): "fp8_karatsuba",
+}
+
+
+def check_tile(family: str, dclass: str, tile=None) -> tuple[int, int, int]:
+    """`tile` as an (bm, bn, bk) tuple, the default when None; raises unless
+    the kernel of (family, dclass) compiles it."""
+    tiles = COMPILED_TILES.get((family, dclass))
+    if tiles is None:
+        raise ValueError(f"no GEMM kernel for family {family!r}, dtype class {dclass!r}")
+    if tile is None:
+        return tiles[0]
+    tile = tuple(int(x) for x in tile)
+    if tile not in tiles:
+        raise ValueError(
+            f"tile {tile} is not compiled for the {family}/{dclass} kernel "
+            f"({TILE_SOURCES[family, dclass]}.cu); compiled tiles: {tiles}"
+        )
+    return tile
+
+
+def resolve_blocks(
+    family: str,
+    dclass: str,
+    m: int,
+    n: int,
+    k: int,
+    bm: int | None = None,
+    bn: int | None = None,
+    bk: int | None = None,
+) -> tuple[int, int, int]:
+    """The (bm, bn, bk) a GEMM kernel launches for one (family, dclass,
+    shape) slot: the port's `repro.kernels.common.resolve_blocks`.
+
+    Explicit values win per axis.  Unset axes come from the active
+    calibration's autotuned winner for this slot (`repro_torch.tune`,
+    `current_calibration().block_for(block_key(...))`), else from the
+    kernel's default tile — per family, unlike the reference's single
+    Pallas block (256, 256, 512), which means nothing to these kernels.
+    The result must be one of the kernel's compiled tiles
+    (`COMPILED_TILES`); anything else, a tuned entry included, raises.
+    """
+    tuned = None
+    if bm is None or bn is None or bk is None:
+        # lazy import: tune.cache must stay importable without the kernels
+        from ..tune.cache import block_key, current_calibration
+
+        cal = current_calibration()
+        if cal is not None:
+            tuned = cal.block_for(block_key(family, dclass, m, n, k))
+    base = tuned or check_tile(family, dclass)
+    return check_tile(family, dclass, (
+        bm if bm is not None else base[0],
+        bn if bn is not None else base[1],
+        bk if bk is not None else base[2],
+    ))

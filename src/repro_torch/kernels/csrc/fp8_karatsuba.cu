@@ -12,12 +12,14 @@
 // products x 2 m n k per plane, 24 N m n k in all, at 1,979 TFLOP/s dense
 // (4096^3 at N = 14: 11.67 ms, 4x the int8 Karatsuba kernel's bound).
 //
-// Design: the skeleton of karatsuba_fused.cu.  Grid (ceil(n/64),
-// ceil(m/128), N); each block loops over all of K.  The sums (AR+AI) mod p
+// Design: the skeleton of karatsuba_fused.cu.  Grid (ceil(n/BN),
+// ceil(m/BM), N); each block loops over all of K.  The sums (AR+AI) mod p
 // and (BR+BI) mod p are formed canonically per byte while staging (as the
 // TPU kernel forms them in VMEM, fp8_mod_gemm.py:191-192), then all six
 // operands are split into hi and lo e4m3 digits: twelve staged tiles, 90 KB
-// of dynamic shared memory.  Eight warps, each a 32x32 sub-tile; per
+// of dynamic shared memory at the default tile (128, 64, 64), 60 KB at the
+// other one, (64, 64, 64) (`kernels/common.COMPILED_TILES`).  Eight warps,
+// each a 32x32 sub-tile at the default tile and 16 x 32 at the other; per
 // m16n8k32 step and product four e4m3 `mma.sync` (HH, LL, both halves of
 // X), each from a zero or bounded C (fp8_tiles.cuh).
 //
@@ -40,23 +42,25 @@
 
 namespace {
 
-constexpr int BM = 128, BN = 64, THREADS = 256;
-constexpr int MT = 2, NT = 4;  // warp tile 32 x 32
-constexpr int A_TILE = BM * LDS, B_TILE = BN * LDS;
 // [AR, AI, AS] x [hi, lo] A tiles, then [BR, BI, BS] x [hi, lo] B tiles
-constexpr int SMEM_BYTES = 6 * A_TILE + 6 * B_TILE;
+template <class T>
+constexpr int smem_bytes() {
+  return 6 * (T::BM + T::BN) * T::LDS;
+}
 
 struct ModParams {
   int p[REPRO_MAX_MODULI];
 };
 
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS) fp8_karatsuba_kernel(
+template <class T, bool VEC>
+__global__ void __launch_bounds__(T::THREADS) fp8_karatsuba_kernel(
     const int8_t* __restrict__ AR, const int8_t* __restrict__ AI,
     const int8_t* __restrict__ BR, const int8_t* __restrict__ BI,
     const int8_t* __restrict__ carry_r, const int8_t* __restrict__ carry_i,
     int8_t* __restrict__ out_r, int8_t* __restrict__ out_i, int m, int n, int k,
     ModParams prm) {
+  constexpr int BM = T::BM, BN = T::BN, BK = T::BK, LDS = T::LDS, MT = T::MT, NT = T::NT;
+  constexpr int A_TILE = BM * LDS, B_TILE = BN * LDS;
   extern __shared__ __align__(16) int8_t smem[];
   int8_t* As = smem;                 // operand g, digit d at As + (2 g + d) * A_TILE
   int8_t* Bs = smem + 6 * A_TILE;    // likewise, B_TILE apart
@@ -70,24 +74,33 @@ __global__ void __launch_bounds__(THREADS) fp8_karatsuba_kernel(
   BR += b_off;
   BI += b_off;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int wm = (warp >> T::WN_LOG2) * T::WTM, wn = (warp & (T::WARPS_N - 1)) * T::WTN;
 
-  const int a_row = tid >> 2, a_col = (tid & 3) * 16;
-  const int nb = (lane & 7) + 8 * (warp & 1);
-  const int kb = (lane >> 3) + 4 * (warp >> 1);
+  // staging (see Tile): A rows a_row + r A_ROWS, 16 bytes at a_col; the B
+  // 4x4 blocks at n = 4 nb, k = 4 (kb + i KB_STEP)
+  const int a_row = tid >> T::A_CPR_LOG2, a_col = (tid & (T::A_CPR - 1)) * 16;
+  const int nb = (lane & 7) + 8 * (warp & (T::NB_GROUPS - 1));
+  const int kb = (lane >> 3) + 4 * (warp >> T::NBG_LOG2);
 
-  uint4 rar[2], rai[2];
-  uint32_t rbr[4], rbi[4];
+  uint4 rar[T::A_ITERS], rai[T::A_ITERS];
+  uint32_t rbr[T::B_WARP_ITERS][4], rbi[T::B_WARP_ITERS][4];
   auto load = [&](int k0) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rar[r] = load_a16<VEC>(AR, m - m0, k, a_row + 64 * r, k0 + a_col);
-      rai[r] = load_a16<VEC>(AI, m - m0, k, a_row + 64 * r, k0 + a_col);
+    for (int r = 0; r < T::A_ITERS; ++r) {
+      const int row = a_row + r * T::A_ROWS;
+      const bool in = T::A_EXACT || row < BM;
+      rar[r] = in ? load_a16<VEC>(AR, m - m0, k, row, k0 + a_col) : make_uint4(0, 0, 0, 0);
+      rai[r] = in ? load_a16<VEC>(AI, m - m0, k, row, k0 + a_col) : make_uint4(0, 0, 0, 0);
     }
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      rbr[r] = load_b4<VEC>(BR, k, n, k0 + 4 * kb + r, n0 + 4 * nb);
-      rbi[r] = load_b4<VEC>(BI, k, n, k0 + 4 * kb + r, n0 + 4 * nb);
+    for (int i = 0; i < T::B_WARP_ITERS; ++i) {
+      const int kbi = kb + i * T::KB_STEP;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const bool in = T::B_WARP_EXACT || kbi < BK / 4;
+        rbr[i][r] = in ? load_b4<VEC>(BR, k, n, k0 + 4 * kbi + r, n0 + 4 * nb) : 0u;
+        rbi[i][r] = in ? load_b4<VEC>(BI, k, n, k0 + 4 * kbi + r, n0 + 4 * nb) : 0u;
+      }
     }
   };
 
@@ -104,18 +117,27 @@ __global__ void __launch_bounds__(THREADS) fp8_karatsuba_kernel(
   load(0);
   for (int k0 = 0; k0 < k; k0 += BK) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int off = (a_row + 64 * r) * LDS + a_col;
-      store_a_digits(As, As + A_TILE, off, rar[r]);
-      store_a_digits(As + 2 * A_TILE, As + 3 * A_TILE, off, rai[r]);
-      store_a_digits(As + 4 * A_TILE, As + 5 * A_TILE, off, sum_mod16(rar[r], rai[r], p, half));
+    for (int r = 0; r < T::A_ITERS; ++r) {
+      const int row = a_row + r * T::A_ROWS;
+      if (T::A_EXACT || row < BM) {
+        const int off = row * LDS + a_col;
+        store_a_digits(As, As + A_TILE, off, rar[r]);
+        store_a_digits(As + 2 * A_TILE, As + 3 * A_TILE, off, rai[r]);
+        store_a_digits(As + 4 * A_TILE, As + 5 * A_TILE, off, sum_mod16(rar[r], rai[r], p, half));
+      }
     }
-    uint32_t rbs[4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) rbs[r] = sum_mod4(rbr[r], rbi[r], p, half);
-    store_b_digits(Bs, Bs + B_TILE, rbr, 4 * nb, 4 * kb);
-    store_b_digits(Bs + 2 * B_TILE, Bs + 3 * B_TILE, rbi, 4 * nb, 4 * kb);
-    store_b_digits(Bs + 4 * B_TILE, Bs + 5 * B_TILE, rbs, 4 * nb, 4 * kb);
+    for (int i = 0; i < T::B_WARP_ITERS; ++i) {
+      const int kbi = kb + i * T::KB_STEP;
+      if (T::B_WARP_EXACT || kbi < BK / 4) {
+        uint32_t rbs[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) rbs[r] = sum_mod4(rbr[i][r], rbi[i][r], p, half);
+        store_b_digits<BK>(Bs, Bs + B_TILE, rbr[i], 4 * nb, 4 * kbi);
+        store_b_digits<BK>(Bs + 2 * B_TILE, Bs + 3 * B_TILE, rbi[i], 4 * nb, 4 * kbi);
+        store_b_digits<BK>(Bs + 4 * B_TILE, Bs + 5 * B_TILE, rbs, 4 * nb, 4 * kbi);
+      }
+    }
     __syncthreads();
     if (k0 + BK < k) load(k0 + BK);
 #pragma unroll 1  // one k32 sub-step's fragments live at a time
@@ -123,10 +145,10 @@ __global__ void __launch_bounds__(THREADS) fp8_karatsuba_kernel(
 #pragma unroll
       for (int g = 0; g < 3; ++g) {
         uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
-        load_a_frags<MT>(ah, As + 2 * g * A_TILE, wm, ks, lane);
-        load_a_frags<MT>(al, As + (2 * g + 1) * A_TILE, wm, ks, lane);
-        load_b_frags<NT>(bh, Bs + 2 * g * B_TILE, wn, ks, lane);
-        load_b_frags<NT>(bl, Bs + (2 * g + 1) * B_TILE, wn, ks, lane);
+        load_a_frags<MT, BK>(ah, As + 2 * g * A_TILE, wm, ks, lane);
+        load_a_frags<MT, BK>(al, As + (2 * g + 1) * A_TILE, wm, ks, lane);
+        load_b_frags<NT, BK>(bh, Bs + 2 * g * B_TILE, wn, ks, lane);
+        load_b_frags<NT, BK>(bl, Bs + (2 * g + 1) * B_TILE, wn, ks, lane);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
@@ -173,16 +195,29 @@ __global__ void __launch_bounds__(THREADS) fp8_karatsuba_kernel(
   }
 }
 
-template <bool VEC>
-int launch(const int8_t* AR, const int8_t* AI, const int8_t* BR, const int8_t* BI,
-           const int8_t* CR, const int8_t* CI, int8_t* OR, int8_t* OI, int n_mod, int m, int n,
-           int k, const ModParams& prm, cudaStream_t s) {
-  auto kernel = fp8_karatsuba_kernel<VEC>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+struct Args {
+  const int8_t *ar, *ai, *br, *bi, *cr, *ci;
+  int8_t *out_r, *out_i;
+};
+
+template <class T, bool VEC>
+int launch_vec(const Args& x, int n_mod, int m, int n, int k, const ModParams& prm,
+               cudaStream_t s) {
+  auto kernel = fp8_karatsuba_kernel<T, VEC>;
+  constexpr int smem = smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, n_mod);
-  kernel<<<grid, THREADS, SMEM_BYTES, s>>>(AR, AI, BR, BI, CR, CI, OR, OI, m, n, k, prm);
+  const dim3 grid((n + T::BN - 1) / T::BN, (m + T::BM - 1) / T::BM, n_mod);
+  kernel<<<grid, T::THREADS, smem, s>>>(x.ar, x.ai, x.br, x.bi, x.cr, x.ci, x.out_r, x.out_i, m,
+                                        n, k, prm);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int launch(const Args& x, int n_mod, int m, int n, int k, bool vec, const ModParams& prm,
+           cudaStream_t s) {
+  return vec ? launch_vec<T, true>(x, n_mod, m, n, k, prm, s)
+             : launch_vec<T, false>(x, n_mod, m, n, k, prm, s);
 }
 
 }  // namespace
@@ -190,7 +225,7 @@ int launch(const int8_t* AR, const int8_t* AI, const int8_t* BR, const int8_t* B
 extern "C" int fp8_karatsuba_launch(const void* ar, const void* ai, const void* br,
                                     const void* bi, const void* carry_r, const void* carry_i,
                                     void* out_r, void* out_i, int n_mod, int m, int n, int k,
-                                    const int* moduli, void* stream) {
+                                    int bm, int bn, int bk, const int* moduli, void* stream) {
   if (n_mod < 1 || n_mod > REPRO_MAX_MODULI) return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0 || n == 0) return 0;
   ModParams prm;
@@ -201,14 +236,15 @@ extern "C" int fp8_karatsuba_launch(const void* ar, const void* ai, const void* 
                    reinterpret_cast<uintptr_t>(br) % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(bi) % 4 == 0;
   auto* s = static_cast<cudaStream_t>(stream);
-  const auto* AR = static_cast<const int8_t*>(ar);
-  const auto* AI = static_cast<const int8_t*>(ai);
-  const auto* BR = static_cast<const int8_t*>(br);
-  const auto* BI = static_cast<const int8_t*>(bi);
-  const auto* CR = static_cast<const int8_t*>(carry_r);
-  const auto* CI = static_cast<const int8_t*>(carry_i);
-  auto* OR = static_cast<int8_t*>(out_r);
-  auto* OI = static_cast<int8_t*>(out_i);
-  return vec ? launch<true>(AR, AI, BR, BI, CR, CI, OR, OI, n_mod, m, n, k, prm, s)
-             : launch<false>(AR, AI, BR, BI, CR, CI, OR, OI, n_mod, m, n, k, prm, s);
+  const Args x = {static_cast<const int8_t*>(ar),      static_cast<const int8_t*>(ai),
+                  static_cast<const int8_t*>(br),      static_cast<const int8_t*>(bi),
+                  static_cast<const int8_t*>(carry_r), static_cast<const int8_t*>(carry_i),
+                  static_cast<int8_t*>(out_r),         static_cast<int8_t*>(out_i)};
+#define REPRO_TILE(BM, BN, BK, WN) \
+  if (bm == BM && bn == BN && bk == BK)  \
+    return launch<Tile<BM, BN, BK, WN>>(x, n_mod, m, n, k, vec, prm, s);
+  REPRO_TILE(128, 64, 64, 2)
+  REPRO_TILE(64, 64, 64, 2)
+#undef REPRO_TILE
+  return static_cast<int>(cudaErrorInvalidValue);  // a tile that was not compiled
 }

@@ -11,17 +11,19 @@
 // bound); the N (m k + k n + m n) bytes are far below that line.
 //
 // Design, simple first: the skeleton of int8_mod_gemm.cu.  Grid
-// (ceil(n/64), ceil(m/128), N); each block owns one 128x64 output tile of
-// one plane and loops over all of K.  Per 64-deep K step the int8 A and B
+// (ceil(n/BN), ceil(m/BM), N); each block owns one BM x BN output tile of
+// one plane and loops over all of K.  Per BK-deep K step the int8 A and B
 // tiles go global -> registers -> shared memory, each residue split into
 // its hi and lo e4m3 digits on the way (B transposed first), so the staged
-// bytes double: Ah, Al, Bh, Bl, 30 KB.  Eight warps, each a 32x32 sub-tile;
-// per m16n8k32 step four e4m3 `mma.sync` products (HH, LL, and the two
-// halves of X), each from a zero or bounded C, added into three f32
-// register sums HH, X, LL (96 registers a thread).  The two k32 sub-steps
-// of a K step are not unrolled: unrolled, ptxas keeps both sub-steps'
-// fragments and the products' temporaries live and spills at the cap of
-// 255 registers.
+// bytes double: Ah, Al, Bh, Bl, 30 KB at the default tile (128, 64, 64).
+// Eight warps, there each a 32x32 sub-tile; per m16n8k32 step four e4m3
+// `mma.sync` products (HH, LL, and the two halves of X), each from a zero
+// or bounded C, added into three f32 register sums HH, X, LL (96 registers
+// a thread).  The two k32 sub-steps of a K step are not unrolled:
+// unrolled, ptxas keeps both sub-steps' fragments and the products'
+// temporaries live and spills at the cap of 255 registers.  The other
+// tile, (64, 64, 64) with a 16 x 32 warp tile, halves the register sums
+// (`kernels/common.COMPILED_TILES`).
 //
 // The accumulation hazard.  The tensor core's fp8 sum keeps about 14 bits,
 // so it never holds more than one step: every product it returns is an
@@ -40,18 +42,16 @@
 
 namespace {
 
-constexpr int BM = 128, BN = 64, THREADS = 256;
-constexpr int MT = 2, NT = 4;  // warp tile 32 x 32 in m16 x n8 products
-
 struct ModParams {
   int p[REPRO_MAX_MODULI];
 };
 
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS) fp8_mod_gemm_kernel(
+template <class T, bool VEC>
+__global__ void __launch_bounds__(T::THREADS) fp8_mod_gemm_kernel(
     const int8_t* __restrict__ A, const int8_t* __restrict__ B,
     const int8_t* __restrict__ carry, int8_t* __restrict__ out, int m, int n,
     int k, ModParams prm) {
+  constexpr int BM = T::BM, BN = T::BN, BK = T::BK, LDS = T::LDS, MT = T::MT, NT = T::NT;
   __shared__ __align__(16) int8_t Ah[BM * LDS];
   __shared__ __align__(16) int8_t Al[BM * LDS];
   __shared__ __align__(16) int8_t Bh[BN * LDS];
@@ -61,21 +61,32 @@ __global__ void __launch_bounds__(THREADS) fp8_mod_gemm_kernel(
   A += static_cast<size_t>(plane) * m * k + static_cast<size_t>(m0) * k;
   B += static_cast<size_t>(plane) * k * n;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int wm = (warp >> T::WN_LOG2) * T::WTM, wn = (warp & (T::WARPS_N - 1)) * T::WTN;
 
-  // staging assignment: A rows (tid >> 2) and +64, 16 bytes at (tid & 3) * 16;
-  // one B 4x4 block at n = 4 nb, k = 4 kb
-  const int a_row = tid >> 2, a_col = (tid & 3) * 16;
-  const int nb = (lane & 7) + 8 * (warp & 1);
-  const int kb = (lane >> 3) + 4 * (warp >> 1);
+  // staging (see Tile): A rows a_row + r A_ROWS, 16 bytes at a_col; the B
+  // 4x4 blocks at n = 4 nb, k = 4 (kb + i KB_STEP)
+  const int a_row = tid >> T::A_CPR_LOG2, a_col = (tid & (T::A_CPR - 1)) * 16;
+  const int nb = (lane & 7) + 8 * (warp & (T::NB_GROUPS - 1));
+  const int kb = (lane >> 3) + 4 * (warp >> T::NBG_LOG2);
 
-  uint4 ra[2];
-  uint32_t rb[4];
+  uint4 ra[T::A_ITERS];
+  uint32_t rb[T::B_WARP_ITERS][4];
   auto load = [&](int k0) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) ra[r] = load_a16<VEC>(A, m - m0, k, a_row + 64 * r, k0 + a_col);
+    for (int r = 0; r < T::A_ITERS; ++r) {
+      const int row = a_row + r * T::A_ROWS;
+      const bool in = T::A_EXACT || row < BM;
+      ra[r] = in ? load_a16<VEC>(A, m - m0, k, row, k0 + a_col) : make_uint4(0, 0, 0, 0);
+    }
 #pragma unroll
-    for (int r = 0; r < 4; ++r) rb[r] = load_b4<VEC>(B, k, n, k0 + 4 * kb + r, n0 + 4 * nb);
+    for (int i = 0; i < T::B_WARP_ITERS; ++i) {
+      const int kbi = kb + i * T::KB_STEP;
+      const bool in = T::B_WARP_EXACT || kbi < BK / 4;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        rb[i][r] = in ? load_b4<VEC>(B, k, n, k0 + 4 * kbi + r, n0 + 4 * nb) : 0u;
+      }
+    }
   };
 
   float hh[MT][NT][4], xx[MT][NT][4], ll[MT][NT][4];
@@ -89,17 +100,24 @@ __global__ void __launch_bounds__(THREADS) fp8_mod_gemm_kernel(
   load(0);
   for (int k0 = 0; k0 < k; k0 += BK) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) store_a_digits(Ah, Al, (a_row + 64 * r) * LDS + a_col, ra[r]);
-    store_b_digits(Bh, Bl, rb, 4 * nb, 4 * kb);
+    for (int r = 0; r < T::A_ITERS; ++r) {
+      const int row = a_row + r * T::A_ROWS;
+      if (T::A_EXACT || row < BM) store_a_digits(Ah, Al, row * LDS + a_col, ra[r]);
+    }
+#pragma unroll
+    for (int i = 0; i < T::B_WARP_ITERS; ++i) {
+      const int kbi = kb + i * T::KB_STEP;
+      if (T::B_WARP_EXACT || kbi < BK / 4) store_b_digits<BK>(Bh, Bl, rb[i], 4 * nb, 4 * kbi);
+    }
     __syncthreads();
     if (k0 + BK < k) load(k0 + BK);
 #pragma unroll 1  // one k32 sub-step's fragments live at a time
     for (int ks = 0; ks < BK; ks += 32) {
       uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
-      load_a_frags<MT>(ah, Ah, wm, ks, lane);
-      load_a_frags<MT>(al, Al, wm, ks, lane);
-      load_b_frags<NT>(bh, Bh, wn, ks, lane);
-      load_b_frags<NT>(bl, Bl, wn, ks, lane);
+      load_a_frags<MT, BK>(ah, Ah, wm, ks, lane);
+      load_a_frags<MT, BK>(al, Al, wm, ks, lane);
+      load_b_frags<NT, BK>(bh, Bh, wn, ks, lane);
+      load_b_frags<NT, BK>(bl, Bl, wn, ks, lane);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
@@ -144,16 +162,27 @@ __global__ void __launch_bounds__(THREADS) fp8_mod_gemm_kernel(
   }
 }
 
+template <class T>
+int launch(const int8_t* A, const int8_t* B, const int8_t* C, int8_t* O, int n_mod, int m, int n,
+           int k, bool vec, const ModParams& prm, cudaStream_t s) {
+  const dim3 grid((n + T::BN - 1) / T::BN, (m + T::BM - 1) / T::BM, n_mod);
+  if (vec) {
+    fp8_mod_gemm_kernel<T, true><<<grid, T::THREADS, 0, s>>>(A, B, C, O, m, n, k, prm);
+  } else {
+    fp8_mod_gemm_kernel<T, false><<<grid, T::THREADS, 0, s>>>(A, B, C, O, m, n, k, prm);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int fp8_mod_gemm_launch(const void* a, const void* b, const void* carry,
-                                   void* out, int n_mod, int m, int n, int k,
-                                   const int* moduli, void* stream) {
+                                   void* out, int n_mod, int m, int n, int k, int bm, int bn,
+                                   int bk, const int* moduli, void* stream) {
   if (n_mod < 1 || n_mod > REPRO_MAX_MODULI) return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0 || n == 0) return 0;
   ModParams prm;
   for (int l = 0; l < n_mod; ++l) prm.p[l] = moduli[l];
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, n_mod);
   const bool vec = k % 16 == 0 && n % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(b) % 4 == 0;
@@ -162,10 +191,11 @@ extern "C" int fp8_mod_gemm_launch(const void* a, const void* b, const void* car
   const auto* B = static_cast<const int8_t*>(b);
   const auto* C = static_cast<const int8_t*>(carry);
   auto* O = static_cast<int8_t*>(out);
-  if (vec) {
-    fp8_mod_gemm_kernel<true><<<grid, THREADS, 0, s>>>(A, B, C, O, m, n, k, prm);
-  } else {
-    fp8_mod_gemm_kernel<false><<<grid, THREADS, 0, s>>>(A, B, C, O, m, n, k, prm);
-  }
-  return static_cast<int>(cudaGetLastError());
+#define REPRO_TILE(BM, BN, BK, WN)                                      \
+  if (bm == BM && bn == BN && bk == BK)                                 \
+    return launch<Tile<BM, BN, BK, WN>>(A, B, C, O, n_mod, m, n, k, vec, prm, s);
+  REPRO_TILE(128, 64, 64, 2)
+  REPRO_TILE(64, 64, 64, 2)
+#undef REPRO_TILE
+  return static_cast<int>(cudaErrorInvalidValue);  // a tile that was not compiled
 }

@@ -82,6 +82,7 @@ __device__ __forceinline__ void store_a_digits(int8_t* Ah, int8_t* Al, int off, 
 }
 
 // Stage a 4(k) x 4(n) B block transposed (as `store_b_block`), as digits.
+template <int BK>
 __device__ __forceinline__ void store_b_digits(int8_t* Bh, int8_t* Bl, const uint32_t (&x)[4],
                                                int n, int kk) {
   uint32_t w[4];
@@ -90,8 +91,8 @@ __device__ __forceinline__ void store_b_digits(int8_t* Bh, int8_t* Bl, const uin
   for (int j = 0; j < 4; ++j) {
     uint32_t h, l;
     split_digits(w[j], h, l);
-    *reinterpret_cast<uint32_t*>(Bh + (n + j) * LDS + kk) = h;
-    *reinterpret_cast<uint32_t*>(Bl + (n + j) * LDS + kk) = l;
+    *reinterpret_cast<uint32_t*>(Bh + (n + j) * lds_for(BK) + kk) = h;
+    *reinterpret_cast<uint32_t*>(Bl + (n + j) * lds_for(BK) + kk) = l;
   }
 }
 

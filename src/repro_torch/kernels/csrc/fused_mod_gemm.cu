@@ -13,8 +13,8 @@
 // Design.  The TPU kernel keeps all N planes' int32 accumulators, an
 // (N, 256, 256) block of VMEM, live across its K grid axis; an H100 block
 // has 227 KB of shared memory and 255 registers a thread, so the loops are
-// turned round: planes outside, K inside, one 64x64 output tile a block.
-//  - For plane l, each 64-deep K step loads the raw f32 A tile (and B tile)
+// turned round: planes outside, K inside, one BM x BN output tile a block.
+//  - For plane l, each BK-deep K step loads the raw f32 A tile (and B tile)
 //    into registers, casts them to residues mod p_l with `cast_tile.cuh`
 //    (the residue_cast kernel's exact op sequence) into the padded
 //    [rows][LDS] staging of `gemm_tiles.cuh`, B transposed on the way, and
@@ -24,7 +24,9 @@
 //    int32 symmetric mod (the reference's in-kernel chunk reduction,
 //    int8_mod_gemm.py:217-225), so any k stays exact.
 //  - The canonical int8 residue of plane l is stashed in dynamic shared
-//    memory, N * 64 * 64 bytes (96 KB at N = 24).
+//    memory, N * BM * BN bytes (96 KB at N = 24 for the default 64 x 64
+//    tile, 192 KB for the other, 128 x 64, which casts each B tile for half
+//    as many output tiles; `kernels/common.COMPILED_TILES`).
 //  - The epilogue runs Garner (`garner_tile.cuh`, the crt_garner kernel's
 //    exact op sequence) on the stash, one thread per output element, and
 //    applies the inverse scaling.
@@ -37,9 +39,6 @@
 #include "gemm_tiles.cuh"
 
 namespace {
-
-constexpr int BM = 64, BN = 64, THREADS = 256;
-constexpr int MT = 2, NT = 2;  // warp tile 32 x 16; 2 x 4 warps
 
 struct Operands {
   const float* a;        // (m, k) f32
@@ -56,23 +55,30 @@ struct Operands {
   float* out;            // (m, n) f32, or (2, m, n) double-single
 };
 
-template <int NMAX, bool PREPARED, bool VEC>
-__global__ void __launch_bounds__(THREADS) fused_mod_gemm_kernel(
+template <class T, int NMAX, bool PREPARED, bool VEC>
+__global__ void __launch_bounds__(T::THREADS) fused_mod_gemm_kernel(
     Operands op, int m, int n, int k, int chunk_steps, int out_dd, CastParams cp,
     GarnerParams gp) {
+  constexpr int BM = T::BM, BN = T::BN, BK = T::BK, LDS = T::LDS, MT = T::MT, NT = T::NT;
+  constexpr int THREADS = T::THREADS;
   extern __shared__ __align__(16) int8_t stash[];  // [N][BM * BN]
   __shared__ __align__(16) int8_t As[BM * LDS];
   __shared__ __align__(16) int8_t Bs[BN * LDS];
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 16;
+  const int wm = (warp >> T::WN_LOG2) * T::WTM, wn = (warp & (T::WARPS_N - 1)) * T::WTN;
 
-  // staging: A row a_row, 16 bytes at a_col; B the 4x4 block at
-  // n = n0 + 4 b_nb, k = 4 b_kb
-  const int a_row = tid >> 2, a_col = (tid & 3) * 16;
-  const int b_nb = tid & 15, b_kb = tid >> 4;
-  const int ga = m0 + a_row;
-  const float scale_a = ga < m ? op.sa1[ga] * op.sa2[ga] : 0.0f;
+  // staging (see Tile): A rows a_row + r A_ROWS, 16 values at a_col; the B
+  // 4x4 blocks at n = n0 + 4 b_nb, k = 4 (b_kb + i B_KBS), the same columns
+  // every round
+  const int a_row = tid >> T::A_CPR_LOG2, a_col = (tid & (T::A_CPR - 1)) * 16;
+  const int b_nb = tid & (T::NB - 1), b_kb = tid >> T::NB_LOG2;
+  float scale_a[T::A_ITERS];
+#pragma unroll
+  for (int r = 0; r < T::A_ITERS; ++r) {
+    const int ga = m0 + a_row + r * T::A_ROWS;
+    scale_a[r] = ga < m ? op.sa1[ga] * op.sa2[ga] : 0.0f;
+  }
   float scale_b[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -80,18 +86,29 @@ __global__ void __launch_bounds__(THREADS) fused_mod_gemm_kernel(
     scale_b[j] = (!PREPARED && gc < n) ? op.sb1[gc] * op.sb2[gc] : 0.0f;
   }
 
-  float ra[16];
-  float rb[4][4];
-  uint32_t rq[4];
+  float ra[T::A_ITERS][16];
+  float rb[T::B_ITERS][4][4];
+  uint32_t rq[T::B_ITERS][4];
   auto load = [&](int l, int k0) {
-    load_f32_16<VEC>(op.a, m, k, ga, k0 + a_col, ra);
-    if (PREPARED) {
-      const int8_t* plane = op.b_res + static_cast<size_t>(l) * k * n;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) rq[r] = load_b4<VEC>(plane, k, n, k0 + 4 * b_kb + r, n0 + 4 * b_nb);
-    } else {
+    for (int r = 0; r < T::A_ITERS; ++r) {
+      const int row = a_row + r * T::A_ROWS;
+      // rows past the tile read as past the matrix: zeros
+      load_f32_16<VEC>(op.a, (T::A_EXACT || row < BM) ? m : 0, k, m0 + row, k0 + a_col, ra[r]);
+    }
 #pragma unroll
-      for (int r = 0; r < 4; ++r) load_f32_4<VEC>(op.b, k, n, k0 + 4 * b_kb + r, n0 + 4 * b_nb, rb[r]);
+    for (int i = 0; i < T::B_ITERS; ++i) {
+      const int kbi = b_kb + i * T::B_KBS;
+      const int kk = k0 + 4 * kbi;
+      const int rows = (T::B_EXACT || kbi < BK / 4) ? k : 0;  // past the tile: zeros
+      if (PREPARED) {
+        const int8_t* plane = op.b_res + static_cast<size_t>(l) * k * n;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) rq[i][r] = load_b4<VEC>(plane, rows, n, kk + r, n0 + 4 * b_nb);
+      } else {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) load_f32_4<VEC>(op.b, rows, n, kk + r, n0 + 4 * b_nb, rb[i][r]);
+      }
     }
   };
 
@@ -108,14 +125,28 @@ __global__ void __launch_bounds__(THREADS) fused_mod_gemm_kernel(
     load(l, 0);
     int step = 0;
     for (int k0 = 0; k0 < k; k0 += BK, ++step) {
-      *reinterpret_cast<uint4*>(As + a_row * LDS + a_col) = cast_row16(ra, scale_a, l, cp);
-      uint32_t x[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) x[r] = PREPARED ? rq[r] : cast_pack4(rb[r], scale_b, l, cp);
-      store_b_block(Bs, x, 4 * b_nb, 4 * b_kb);
+      for (int r = 0; r < T::A_ITERS; ++r) {
+        const int row = a_row + r * T::A_ROWS;
+        if (T::A_EXACT || row < BM) {
+          *reinterpret_cast<uint4*>(As + row * LDS + a_col) = cast_row16(ra[r], scale_a[r], l, cp);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < T::B_ITERS; ++i) {
+        const int kbi = b_kb + i * T::B_KBS;
+        if (T::B_EXACT || kbi < BK / 4) {
+          uint32_t x[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            x[r] = PREPARED ? rq[i][r] : cast_pack4(rb[i][r], scale_b, l, cp);
+          }
+          store_b_block<BK>(Bs, x, 4 * b_nb, 4 * kbi);
+        }
+      }
       __syncthreads();
       if (k0 + BK < k) load(l, k0 + BK);
-      warp_tile_mma<MT, NT>(acc, As, Bs, wm, wn, lane);
+      warp_tile_mma<MT, NT, BK>(acc, As, Bs, wm, wn, lane);
       __syncthreads();
       if ((step + 1) % chunk_steps == 0 && k0 + BK < k) {
         // in-kernel K-chunk reduction: keeps the int32 sums exact for any k
@@ -167,27 +198,37 @@ __global__ void __launch_bounds__(THREADS) fused_mod_gemm_kernel(
   }
 }
 
-template <int NMAX, bool PREPARED, bool VEC>
-int launch(const Operands& op, int m, int n, int k, int chunk_steps, int out_dd,
+template <class T, int NMAX, bool PREPARED, bool VEC>
+int launch(const Operands& op, int m, int n, int k, int chunk_limit, int out_dd,
            const CastParams& cp, const GarnerParams& gp, cudaStream_t stream) {
-  auto kernel = fused_mod_gemm_kernel<NMAX, PREPARED, VEC>;
-  const int smem = cp.n_mod * BM * BN;
+  auto kernel = fused_mod_gemm_kernel<T, NMAX, PREPARED, VEC>;
+  const int smem = cp.n_mod * T::BM * T::BN;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  kernel<<<grid, THREADS, smem, stream>>>(op, m, n, k, chunk_steps, out_dd, cp, gp);
+  const int chunk_steps = chunk_limit / T::BK > 1 ? chunk_limit / T::BK : 1;
+  const dim3 grid((n + T::BN - 1) / T::BN, (m + T::BM - 1) / T::BM);
+  kernel<<<grid, T::THREADS, smem, stream>>>(op, m, n, k, chunk_steps, out_dd, cp, gp);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NMAX>
-int dispatch(const Operands& op, bool prepared, bool vec, int m, int n, int k, int chunk_steps,
+template <class T, int NMAX>
+int dispatch(const Operands& op, bool prepared, bool vec, int m, int n, int k, int chunk_limit,
              int out_dd, const CastParams& cp, const GarnerParams& gp, cudaStream_t s) {
   if (prepared) {
-    return vec ? launch<NMAX, true, true>(op, m, n, k, chunk_steps, out_dd, cp, gp, s)
-               : launch<NMAX, true, false>(op, m, n, k, chunk_steps, out_dd, cp, gp, s);
+    return vec ? launch<T, NMAX, true, true>(op, m, n, k, chunk_limit, out_dd, cp, gp, s)
+               : launch<T, NMAX, true, false>(op, m, n, k, chunk_limit, out_dd, cp, gp, s);
   }
-  return vec ? launch<NMAX, false, true>(op, m, n, k, chunk_steps, out_dd, cp, gp, s)
-             : launch<NMAX, false, false>(op, m, n, k, chunk_steps, out_dd, cp, gp, s);
+  return vec ? launch<T, NMAX, false, true>(op, m, n, k, chunk_limit, out_dd, cp, gp, s)
+             : launch<T, NMAX, false, false>(op, m, n, k, chunk_limit, out_dd, cp, gp, s);
+}
+
+template <class T>
+int dispatch_n(const Operands& op, bool prepared, bool vec, int m, int n, int k, int chunk_limit,
+               int out_dd, const CastParams& cp, const GarnerParams& gp, cudaStream_t s) {
+  const int nm = cp.n_mod;
+  if (nm <= 8) return dispatch<T, 8>(op, prepared, vec, m, n, k, chunk_limit, out_dd, cp, gp, s);
+  if (nm <= 16) return dispatch<T, 16>(op, prepared, vec, m, n, k, chunk_limit, out_dd, cp, gp, s);
+  return dispatch<T, 24>(op, prepared, vec, m, n, k, chunk_limit, out_dd, cp, gp, s);
 }
 
 }  // namespace
@@ -197,7 +238,7 @@ extern "C" int fused_mod_gemm_launch(const void* a, const void* sa1, const void*
                                      const void* sb2, const void* r1, const void* r2,
                                      const void* c1, const void* c2, void* out, int m, int n,
                                      int k, int chunk_limit, int out_dd, int n_mod, int n_limbs,
-                                     const int* moduli, const float* radix,
+                                     int bm, int bn, int bk, const int* moduli, const float* radix,
                                      const int* garner_inv, const float* weights, void* stream) {
   CastParams cp;
   GarnerParams gp;
@@ -217,9 +258,13 @@ extern "C" int fused_mod_gemm_launch(const void* a, const void* sa1, const void*
   const uintptr_t b_addr = reinterpret_cast<uintptr_t>(prepared ? b_res : b);
   const bool vec = k % 4 == 0 && n % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                    b_addr % (prepared ? 4 : 16) == 0;
-  const int chunk_steps = chunk_limit / BK > 1 ? chunk_limit / BK : 1;
   auto* s = static_cast<cudaStream_t>(stream);
-  if (n_mod <= 8) return dispatch<8>(op, prepared, vec, m, n, k, chunk_steps, out_dd, cp, gp, s);
-  if (n_mod <= 16) return dispatch<16>(op, prepared, vec, m, n, k, chunk_steps, out_dd, cp, gp, s);
-  return dispatch<24>(op, prepared, vec, m, n, k, chunk_steps, out_dd, cp, gp, s);
+#define REPRO_TILE(BM, BN, BK, WN)                                                            \
+  if (bm == BM && bn == BN && bk == BK)                                                       \
+    return dispatch_n<Tile<BM, BN, BK, WN>>(op, prepared, vec, m, n, k, chunk_limit, out_dd, cp, \
+                                            gp, s);
+  REPRO_TILE(64, 64, 64, 4)
+  REPRO_TILE(128, 64, 64, 2)
+#undef REPRO_TILE
+  return static_cast<int>(cudaErrorInvalidValue);  // a tile that was not compiled
 }

@@ -8,32 +8,35 @@
 // 1,979 TOP/s dense; the N (m k + k n + 2 m n) bytes are far below that
 // line at the main path's sizes.
 //
-// Design, simple first: grid (ceil(n/128), ceil(m/128), N); each block owns
-// one 128x128 output tile of one plane and loops over all of K itself,
-// which replaces the TPU's sequential k grid axis.  Per 64-deep K step the
+// Design, simple first: grid (ceil(n/BN), ceil(m/BM), N); each block owns
+// one BM x BN output tile of one plane and loops over all of K itself,
+// which replaces the TPU's sequential k grid axis.  Per BK-deep K step the
 // A and B tiles go global -> registers -> shared memory (the next step's
 // loads are issued before this step's products), B transposed on the way
-// so both operands are k-contiguous.  Eight warps, each a 64x32 sub-tile of
+// so both operands are k-contiguous.  Eight warps, each a sub-tile of
 // m16n8k32 s8 `mma.sync` products with int32 accumulators in registers.
 // The int32 sums are exact for k <= 2^17 (|sum| <= 127^2 2^17 < 2^31) in
 // any order.  Epilogue: + carry, exact int32 symmetric mod by p_l, int8
 // store, masked at the ragged edge.
+//
+// Tiles (BM, BN, BK; warps): (128, 128, 64; 2 x 4) is the default, with a
+// 64 x 32 warp tile; (128, 128, 128; 2 x 4), (64, 128, 64; 2 x 4) and
+// (128, 64, 64; 4 x 2) are the autotuner's alternatives
+// (`kernels/common.COMPILED_TILES`).
 #include "gemm_tiles.cuh"
 
 namespace {
-
-constexpr int BM = 128, BN = 128, THREADS = 256;
-constexpr int MT = 4, NT = 4;  // warp tile 64 x 32 in m16 x n8 products
 
 struct ModParams {
   int p[REPRO_MAX_MODULI];
 };
 
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS) int8_mod_gemm_kernel(
+template <class T, bool VEC>
+__global__ void __launch_bounds__(T::THREADS) int8_mod_gemm_kernel(
     const int8_t* __restrict__ A, const int8_t* __restrict__ B,
     const int8_t* __restrict__ carry, int8_t* __restrict__ out, int m, int n,
     int k, ModParams prm) {
+  constexpr int BM = T::BM, BN = T::BN, BK = T::BK, LDS = T::LDS, MT = T::MT, NT = T::NT;
   __shared__ __align__(16) int8_t As[BM * LDS];
   __shared__ __align__(16) int8_t Bs[BN * LDS];
   const int plane = blockIdx.z;
@@ -41,25 +44,31 @@ __global__ void __launch_bounds__(THREADS) int8_mod_gemm_kernel(
   A += static_cast<size_t>(plane) * m * k + static_cast<size_t>(m0) * k;
   B += static_cast<size_t>(plane) * k * n;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  const int wm = (warp >> T::WN_LOG2) * T::WTM, wn = (warp & (T::WARPS_N - 1)) * T::WTN;
 
-  // staging assignment: A rows (tid >> 2) and +64, 16 bytes at (tid & 3) * 16;
-  // B 4x4 blocks at n = 4 nb, k = 4 kb (two per thread)
-  const int a_row = tid >> 2, a_col = (tid & 3) * 16;
-  const int nb = (lane & 7) + 8 * (warp & 3);
-  int kb[2];
-  kb[0] = (lane >> 3) + 4 * (warp >> 2);
-  kb[1] = kb[0] + 8;
+  // staging (see Tile): A rows a_row + r A_ROWS, 16 bytes at a_col; the B
+  // 4x4 blocks at n = 4 nb, k = 4 (kb + i KB_STEP)
+  const int a_row = tid >> T::A_CPR_LOG2, a_col = (tid & (T::A_CPR - 1)) * 16;
+  const int nb = (lane & 7) + 8 * (warp & (T::NB_GROUPS - 1));
+  const int kb = (lane >> 3) + 4 * (warp >> T::NBG_LOG2);
 
-  uint4 ra[2];
-  uint32_t rb[2][4];
+  uint4 ra[T::A_ITERS];
+  uint32_t rb[T::B_WARP_ITERS][4];
   auto load = [&](int k0) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) ra[r] = load_a16<VEC>(A, m - m0, k, a_row + 64 * r, k0 + a_col);
+    for (int r = 0; r < T::A_ITERS; ++r) {
+      const int row = a_row + r * T::A_ROWS;
+      const bool in = T::A_EXACT || row < BM;
+      ra[r] = in ? load_a16<VEC>(A, m - m0, k, row, k0 + a_col) : make_uint4(0, 0, 0, 0);
+    }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < T::B_WARP_ITERS; ++i) {
+      const int kbi = kb + i * T::KB_STEP;
+      const bool in = T::B_WARP_EXACT || kbi < BK / 4;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) rb[i][r] = load_b4<VEC>(B, k, n, k0 + 4 * kb[i] + r, n0 + 4 * nb);
+      for (int r = 0; r < 4; ++r) {
+        rb[i][r] = in ? load_b4<VEC>(B, k, n, k0 + 4 * kbi + r, n0 + 4 * nb) : 0u;
+      }
     }
   };
 
@@ -74,12 +83,18 @@ __global__ void __launch_bounds__(THREADS) int8_mod_gemm_kernel(
   load(0);
   for (int k0 = 0; k0 < k; k0 += BK) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) *reinterpret_cast<uint4*>(As + (a_row + 64 * r) * LDS + a_col) = ra[r];
+    for (int r = 0; r < T::A_ITERS; ++r) {
+      const int row = a_row + r * T::A_ROWS;
+      if (T::A_EXACT || row < BM) *reinterpret_cast<uint4*>(As + row * LDS + a_col) = ra[r];
+    }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) store_b_block(Bs, rb[i], 4 * nb, 4 * kb[i]);
+    for (int i = 0; i < T::B_WARP_ITERS; ++i) {
+      const int kbi = kb + i * T::KB_STEP;
+      if (T::B_WARP_EXACT || kbi < BK / 4) store_b_block<BK>(Bs, rb[i], 4 * nb, 4 * kbi);
+    }
     __syncthreads();
     if (k0 + BK < k) load(k0 + BK);
-    warp_tile_mma<MT, NT>(acc, As, Bs, wm, wn, lane);
+    warp_tile_mma<MT, NT, BK>(acc, As, Bs, wm, wn, lane);
     __syncthreads();
   }
 
@@ -104,15 +119,27 @@ __global__ void __launch_bounds__(THREADS) int8_mod_gemm_kernel(
   }
 }
 
+template <class T>
+int launch(const int8_t* A, const int8_t* B, const int8_t* C, int8_t* O, int n_mod, int m, int n,
+           int k, bool vec, const ModParams& prm, cudaStream_t s) {
+  const dim3 grid((n + T::BN - 1) / T::BN, (m + T::BM - 1) / T::BM, n_mod);
+  if (vec) {
+    int8_mod_gemm_kernel<T, true><<<grid, T::THREADS, 0, s>>>(A, B, C, O, m, n, k, prm);
+  } else {
+    int8_mod_gemm_kernel<T, false><<<grid, T::THREADS, 0, s>>>(A, B, C, O, m, n, k, prm);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int int8_mod_gemm_launch(const void* a, const void* b, const void* carry,
-                                    void* out, int n_mod, int m, int n, int k,
-                                    const int* moduli, void* stream) {
+                                    void* out, int n_mod, int m, int n, int k, int bm, int bn,
+                                    int bk, const int* moduli, void* stream) {
   if (n_mod < 1 || n_mod > REPRO_MAX_MODULI) return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0 || n == 0) return 0;
   ModParams prm;
   for (int l = 0; l < n_mod; ++l) prm.p[l] = moduli[l];
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, n_mod);
   const bool vec = k % 16 == 0 && n % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(b) % 4 == 0;
@@ -121,10 +148,13 @@ extern "C" int int8_mod_gemm_launch(const void* a, const void* b, const void* ca
   const auto* B = static_cast<const int8_t*>(b);
   const auto* C = static_cast<const int8_t*>(carry);
   auto* O = static_cast<int8_t*>(out);
-  if (vec) {
-    int8_mod_gemm_kernel<true><<<grid, THREADS, 0, s>>>(A, B, C, O, m, n, k, prm);
-  } else {
-    int8_mod_gemm_kernel<false><<<grid, THREADS, 0, s>>>(A, B, C, O, m, n, k, prm);
-  }
-  return static_cast<int>(cudaGetLastError());
+#define REPRO_TILE(BM, BN, BK, WN)                                      \
+  if (bm == BM && bn == BN && bk == BK)                                 \
+    return launch<Tile<BM, BN, BK, WN>>(A, B, C, O, n_mod, m, n, k, vec, prm, s);
+  REPRO_TILE(128, 128, 64, 4)
+  REPRO_TILE(128, 128, 128, 4)
+  REPRO_TILE(64, 128, 64, 4)
+  REPRO_TILE(128, 64, 64, 2)
+#undef REPRO_TILE
+  return static_cast<int>(cudaErrorInvalidValue);  // a tile that was not compiled
 }

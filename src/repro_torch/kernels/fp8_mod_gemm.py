@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from .common import on_card, plane_mod_params, sym_mod_f32, sym_mod_int32_dyn
+from .common import check_tile, on_card, plane_mod_params, sym_mod_f32, sym_mod_int32_dyn
 from .int8_mod_gemm import launch_mod_gemm
 from .karatsuba_fused import launch_karatsuba
 
@@ -122,22 +122,26 @@ def fp8_mod_gemm_batched(
     *,
     moduli: tuple[int, ...],
     carry: torch.Tensor | None = None,
+    tile: tuple[int, int, int] | None = None,
 ) -> torch.Tensor:
     """E_l = sym_mod(A_l @ B_l [+ carry_l], p_l) on the e4m3 engine, all N
     planes in ONE launch.
 
     a: (N, m, k) int8, b: (N, k, n) int8, carry: optional (N, m, n) int8;
     returns (N, m, n) int8 residues, bitwise `int8_mod_gemm_batched`'s.
-    Any m/n is accepted; k <= `FP8_K_CHUNK_LIMIT` per launch.
+    Any m/n is accepted; k <= `FP8_K_CHUNK_LIMIT` per launch.  `tile`: the
+    block tile, one of `COMPILED_TILES["fp8", "real"]` (None: the default),
+    ignored by the plain version.
     """
     n_mod, m, k = a.shape
     moduli = tuple(int(p) for p in moduli)
     _check_k(k)
     if b.ndim != 3 or b.shape[0] != n_mod or b.shape[1] != k or len(moduli) != n_mod:
         raise ValueError(f"shape mismatch: a {tuple(a.shape)}, b {tuple(b.shape)}, N={len(moduli)}")
+    tile = check_tile("fp8", "real", tile)
     tensors = (a, b) if carry is None else (a, b, carry)
     if on_card(*tensors):
-        out = launch_mod_gemm("fp8_mod_gemm", a, b, moduli=moduli, carry=carry)
+        out = launch_mod_gemm("fp8_mod_gemm", a, b, moduli=moduli, carry=carry, tile=tile)
         fp8_mod_gemm_batched.launches += 1
         return out
     return fp8_mod_gemm_plain(a, b, moduli=moduli, carry=carry)
@@ -154,6 +158,7 @@ def fp8_karatsuba_mod_gemm_batched(
     *,
     moduli: tuple[int, ...],
     carry: tuple[torch.Tensor, torch.Tensor] | None = None,
+    tile: tuple[int, int, int] | None = None,
 ):
     """Residues of (CR', CI') = (AR'+iAI')(BR'+iBI') mod p_l on the e4m3
     engine, all planes and the three Karatsuba products in ONE launch.
@@ -161,6 +166,8 @@ def fp8_karatsuba_mod_gemm_batched(
     Inputs (N, m, k) / (N, k, n) int8 stacks; `carry` an optional (CR, CI)
     pair of (N, m, n) int8 residues folded into the epilogue.  Bitwise
     `karatsuba_mod_gemm_batched`'s; k <= `FP8_K_CHUNK_LIMIT` per launch.
+    `tile`: the block tile, one of `COMPILED_TILES["fp8", "complex"]`
+    (None: the default), ignored by the plain version.
     """
     n_mod, m, k = ar.shape
     moduli = tuple(int(p) for p in moduli)
@@ -176,10 +183,11 @@ def fp8_karatsuba_mod_gemm_batched(
             f"shape mismatch: ar {tuple(ar.shape)}, ai {tuple(ai.shape)}, br {tuple(br.shape)}, "
             f"bi {tuple(bi.shape)}, N={len(moduli)}"
         )
+    tile = check_tile("fp8", "complex", tile)
     tensors = (ar, ai, br, bi) if carry is None else (ar, ai, br, bi, *carry)
     if on_card(*tensors):
         out = launch_karatsuba("fp8_karatsuba", "fp8_karatsuba_launch", ar, ai, br, bi,
-                               moduli=moduli, carry=carry)
+                               moduli=moduli, carry=carry, tile=tile)
         fp8_karatsuba_mod_gemm_batched.launches += 1
         return out
     return fp8_karatsuba_mod_gemm_plain(ar, ai, br, bi, moduli=moduli, carry=carry)

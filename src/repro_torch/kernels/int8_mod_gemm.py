@@ -28,6 +28,7 @@ from ..core.moduli import K_CHUNK_LIMIT, CRTContext
 from . import build
 from .common import (
     check_tensor,
+    check_tile,
     chunked_mod_product,
     limb_radix_f32,
     on_card,
@@ -53,15 +54,16 @@ def int8_mod_gemm_plain(a, b, *, moduli, carry=None):
 @functools.cache
 def _entry(source: str):
     fn = getattr(build.library(source), f"{source}_launch")
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
 
 
-def launch_mod_gemm(source: str, a, b, *, moduli, carry=None):
+def launch_mod_gemm(source: str, a, b, *, moduli, carry=None, tile):
     """Launch the residue-GEMM kernel of `source` (`int8_mod_gemm.cu` or
-    `fp8_mod_gemm.cu`, which share one C interface) into a new (N, m, n)
-    int8 output; the caller counts the launch."""
+    `fp8_mod_gemm.cu`, which share one C interface) with the block `tile`
+    (bm, bn, bk) into a new (N, m, n) int8 output; the caller checks the
+    tile and counts the launch."""
     n_mod, m, k = a.shape
     n = b.shape[-1]
     check_tensor("a", a, torch.int8, (n_mod, m, k))
@@ -72,7 +74,7 @@ def launch_mod_gemm(source: str, a, b, *, moduli, carry=None):
     mod_arr = np.ascontiguousarray(moduli, dtype=np.int32)
     status = _entry(source)(
         a.data_ptr(), b.data_ptr(), None if carry is None else carry.data_ptr(),
-        out.data_ptr(), n_mod, m, n, k, mod_arr.ctypes.data,
+        out.data_ptr(), n_mod, m, n, k, *tile, mod_arr.ctypes.data,
         torch.cuda.current_stream(a.device).cuda_stream,
     )
     build.check_launch(source, status)
@@ -85,11 +87,15 @@ def int8_mod_gemm_batched(
     *,
     moduli: tuple[int, ...],
     carry: torch.Tensor | None = None,
+    tile: tuple[int, int, int] | None = None,
 ) -> torch.Tensor:
     """E_l = sym_mod(A_l @ B_l [+ carry_l], p_l) for all l in ONE launch.
 
     a: (N, m, k) int8, b: (N, k, n) int8, carry: optional (N, m, n) int8;
     returns (N, m, n) int8 residues.  Any m/n/k is accepted; k <= 2^17.
+    `tile`: the kernel's block tile (bm, bn, bk), one of
+    `COMPILED_TILES["kernel", "real"]` (None: the default); the plain
+    version ignores it, and no tile changes the bits.
     """
     n_mod, m, k = a.shape
     moduli = tuple(int(p) for p in moduli)
@@ -97,9 +103,10 @@ def int8_mod_gemm_batched(
         raise ValueError(f"shape mismatch: a {tuple(a.shape)}, b {tuple(b.shape)}, N={len(moduli)}")
     if k > (1 << 17):
         raise ValueError(f"k={k} exceeds the exact-int32 limit 2^17; chunk K")
+    tile = check_tile("kernel", "real", tile)
     tensors = (a, b) if carry is None else (a, b, carry)
     if on_card(*tensors):
-        out = launch_mod_gemm("int8_mod_gemm", a, b, moduli=moduli, carry=carry)
+        out = launch_mod_gemm("int8_mod_gemm", a, b, moduli=moduli, carry=carry, tile=tile)
         int8_mod_gemm_batched.launches += 1
         return out
     return int8_mod_gemm_plain(a, b, moduli=moduli, carry=carry)
@@ -163,12 +170,12 @@ def ptr(t: torch.Tensor | None):
 @functools.cache
 def _fused_entry():
     fn = build.library("fused_mod_gemm").fused_mod_gemm_launch
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
     return fn
 
 
-def _fused_launch(a, b, e_mu, e_nu, ctx, *, n_limbs, out_dd, b_res, chunk_limit):
+def _fused_launch(a, b, e_mu, e_nu, ctx, *, n_limbs, out_dd, b_res, chunk_limit, tile):
     m, k = a.shape
     n = b.shape[-1] if b_res is None else b_res.shape[-1]
     check_tensor("a", a, torch.float32, (m, k))
@@ -182,7 +189,7 @@ def _fused_launch(a, b, e_mu, e_nu, ctx, *, n_limbs, out_dd, b_res, chunk_limit)
     status = _fused_entry()(
         a.data_ptr(), sa1.data_ptr(), sa2.data_ptr(), ptr(b), ptr(b_res), ptr(sb1), ptr(sb2),
         r1.data_ptr(), r2.data_ptr(), c1.data_ptr(), c2.data_ptr(), out.data_ptr(),
-        m, n, k, chunk_limit, int(out_dd), ctx.n, n_limbs,
+        m, n, k, chunk_limit, int(out_dd), ctx.n, n_limbs, *tile,
         *(t.ctypes.data for t in tab.values()),
         torch.cuda.current_stream(a.device).cuda_stream,
     )
@@ -202,6 +209,7 @@ def fused_mod_gemm(
     out_dd: bool = False,
     b_res: torch.Tensor | None = None,
     chunk_limit: int | None = None,
+    tile: tuple[int, int, int] | None = None,
 ) -> torch.Tensor:
     """The one-launch real megakernel: C = A @ B emulated end to end.
 
@@ -210,7 +218,9 @@ def fused_mod_gemm(
     the integer scale exponents.  Returns the (m, n) f32 output, or the
     (2, m, n) double-single pair with `out_dd`.  The K sum is reduced mod p
     every `chunk_limit` columns (default 2^17) inside the launch, so any k
-    is accepted.  Bitwise equal to the composed cast/product/Garner path.
+    is accepted.  `tile`: the block tile (bm, bn, bk), one of
+    `COMPILED_TILES["fused", "real"]` (None: the default), ignored by the
+    plain version.  Bitwise equal to the composed cast/product/Garner path.
     """
     if chunk_limit is None:
         chunk_limit = K_CHUNK_LIMIT
@@ -225,8 +235,9 @@ def fused_mod_gemm(
     rhs = b if b_res is None else b_res
     if rhs.shape[-2] != a.shape[-1]:
         raise ValueError(f"shape mismatch: a {tuple(a.shape)}, b {tuple(rhs.shape)}")
+    tile = check_tile("fused", "real", tile)
     if on_card(a, rhs, e_mu, e_nu):
-        return _fused_launch(a, b, e_mu, e_nu, ctx, **kw)
+        return _fused_launch(a, b, e_mu, e_nu, ctx, tile=tile, **kw)
     return fused_mod_gemm_plain(a, b, e_mu, e_nu, ctx, **kw)
 
 

@@ -31,6 +31,7 @@ from ..core.moduli import K_CHUNK_LIMIT, CRTContext
 from . import build
 from .common import (
     check_tensor,
+    check_tile,
     chunked_mod_product,
     on_card,
     plane_mod_params,
@@ -67,15 +68,16 @@ def karatsuba_mod_gemm_plain(ar, ai, br, bi, *, moduli, carry=None):
 @functools.cache
 def _entry(source: str, symbol: str):
     fn = getattr(build.library(source), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
 
 
-def launch_karatsuba(source: str, symbol: str, ar, ai, br, bi, *, moduli, carry=None):
+def launch_karatsuba(source: str, symbol: str, ar, ai, br, bi, *, moduli, carry=None, tile):
     """Launch the Karatsuba residue-GEMM entry `symbol` of `source`
     (`karatsuba_fused.cu` or `fp8_karatsuba.cu`, which share one C
-    interface) into a new (CR, CI) pair; the caller counts the launch."""
+    interface) with the block `tile` (bm, bn, bk) into a new (CR, CI) pair;
+    the caller checks the tile and counts the launch."""
     n_mod, m, k = ar.shape
     n = br.shape[-1]
     for name, t in (("ar", ar), ("ai", ai)):
@@ -92,7 +94,7 @@ def launch_karatsuba(source: str, symbol: str, ar, ai, br, bi, *, moduli, carry=
     mod_arr = np.ascontiguousarray(moduli, dtype=np.int32)
     status = _entry(source, symbol)(
         ar.data_ptr(), ai.data_ptr(), br.data_ptr(), bi.data_ptr(), *carry_ptrs,
-        cr.data_ptr(), ci.data_ptr(), n_mod, m, n, k, mod_arr.ctypes.data,
+        cr.data_ptr(), ci.data_ptr(), n_mod, m, n, k, *tile, mod_arr.ctypes.data,
         torch.cuda.current_stream(ar.device).cuda_stream,
     )
     build.check_launch(source, status)
@@ -107,11 +109,14 @@ def karatsuba_mod_gemm_batched(
     *,
     moduli: tuple[int, ...],
     carry: tuple[torch.Tensor, torch.Tensor] | None = None,
+    tile: tuple[int, int, int] | None = None,
 ):
     """Residues of (CR', CI') = (AR'+iAI')(BR'+iBI') mod p_l, all planes in
     ONE launch.  Inputs (N, m, k) / (N, k, n) int8 stacks; `carry` is an
     optional (CR, CI) pair of (N, m, n) int8 residues folded into the
-    epilogue.  Any m/n/k is accepted; k <= 2^17."""
+    epilogue.  Any m/n/k is accepted; k <= 2^17.  `tile`: the block tile,
+    one of `COMPILED_TILES["kernel", "complex"]` (None: the default),
+    ignored by the plain version."""
     n_mod, m, k = ar.shape
     moduli = tuple(int(p) for p in moduli)
     if (
@@ -127,10 +132,11 @@ def karatsuba_mod_gemm_batched(
         )
     if k > (1 << 17):
         raise ValueError(f"k={k} exceeds the exact-int32 limit 2^17; chunk K")
+    tile = check_tile("kernel", "complex", tile)
     tensors = (ar, ai, br, bi) + (() if carry is None else tuple(carry))
     if on_card(*tensors):
         out = launch_karatsuba("karatsuba_fused", "karatsuba_mod_gemm_launch", ar, ai, br, bi,
-                               moduli=moduli, carry=carry)
+                               moduli=moduli, carry=carry, tile=tile)
         karatsuba_mod_gemm_batched.launches += 1
         return out
     return karatsuba_mod_gemm_plain(ar, ai, br, bi, moduli=moduli, carry=carry)
@@ -175,12 +181,12 @@ def fused_karatsuba_mod_gemm_plain(ar, ai, br, bi, e_mu, e_nu, ctx, *, n_limbs, 
 @functools.cache
 def _fused_entry():
     fn = build.library("fused_karatsuba").fused_karatsuba_launch
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
     return fn
 
 
-def _fused_launch(ar, ai, br, bi, e_mu, e_nu, ctx, *, n_limbs, out_dd, b_res, chunk_limit):
+def _fused_launch(ar, ai, br, bi, e_mu, e_nu, ctx, *, n_limbs, out_dd, b_res, chunk_limit, tile):
     m, k = ar.shape
     prepared = b_res is not None
     n = (b_res[0] if prepared else br).shape[-1]
@@ -203,7 +209,7 @@ def _fused_launch(ar, ai, br, bi, e_mu, e_nu, ctx, *, n_limbs, out_dd, b_res, ch
         ar.data_ptr(), ai.data_ptr(), sa1.data_ptr(), sa2.data_ptr(), ptr(br), ptr(bi),
         ptr(brr), ptr(bri), ptr(sb1), ptr(sb2), r1.data_ptr(), r2.data_ptr(), c1.data_ptr(),
         c2.data_ptr(), cr.data_ptr(), ci.data_ptr(),
-        m, n, k, chunk_limit, int(out_dd), ctx.n, n_limbs,
+        m, n, k, chunk_limit, int(out_dd), ctx.n, n_limbs, *tile,
         *(t.ctypes.data for t in tab.values()),
         torch.cuda.current_stream(ar.device).cuda_stream,
     )
@@ -225,6 +231,7 @@ def fused_karatsuba_mod_gemm(
     out_dd: bool = False,
     b_res: tuple[torch.Tensor, torch.Tensor] | None = None,
     chunk_limit: int | None = None,
+    tile: tuple[int, int, int] | None = None,
 ):
     """The one-launch complex megakernel: C = (AR + i AI)(BR + i BI) emulated.
 
@@ -232,8 +239,10 @@ def fused_karatsuba_mod_gemm(
     ((N, k, n), (N, k, n)) int8 plane pair (prepared serving); all are cast
     to f32 first.  Returns (cr, ci), each (m, n) f32 or (2, m, n)
     double-single with `out_dd`.  The K sums are reduced mod p every
-    `chunk_limit` columns (default 2^17) inside the launch.  Bitwise equal
-    to the composed cast/Karatsuba/Garner path.
+    `chunk_limit` columns (default 2^17) inside the launch.  `tile`: the
+    block tile, one of `COMPILED_TILES["fused", "complex"]` (None: the
+    default), ignored by the plain version.  Bitwise equal to the composed
+    cast/Karatsuba/Garner path.
     """
     if chunk_limit is None:
         chunk_limit = K_CHUNK_LIMIT
@@ -252,8 +261,9 @@ def fused_karatsuba_mod_gemm(
             f"b {tuple(rhs[0].shape)}, {tuple(rhs[1].shape)}"
         )
     kw = dict(n_limbs=int(n_limbs), out_dd=out_dd, b_res=b_res, chunk_limit=int(chunk_limit))
+    tile = check_tile("fused", "complex", tile)
     if on_card(ar, ai, *rhs, e_mu, e_nu):
-        return _fused_launch(ar, ai, br, bi, e_mu, e_nu, ctx, **kw)
+        return _fused_launch(ar, ai, br, bi, e_mu, e_nu, ctx, tile=tile, **kw)
     return fused_karatsuba_mod_gemm_plain(ar, ai, br, bi, e_mu, e_nu, ctx, **kw)
 
 

@@ -17,6 +17,12 @@ of a megakernel instead (`fused_mod_gemm`, `fused_karatsuba_mod_gemm`).
 residue products on the e4m3 engine (`fp8_mod_gemm_batched`,
 `fp8_karatsuba_mod_gemm_batched`): still 4 launches per GEMM, bitwise
 equal to execution="kernel".
+
+Every GEMM launch takes the block tile `common.resolve_blocks` gives for
+its (family, dtype class, shape): the active calibration's tuned tile,
+else the kernel's default.  The capability flags (`fused_karatsuba`,
+`modulus_batched`, `megakernel`, `engine`) are the reference backends'
+declarations, which the performance model's 'auto' selections price.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ from ..core import executor
 from ..core.executor import chunked_residue_matmul
 from ..core.moduli import CRTContext
 from . import fp8_mod_gemm
-from .common import split_scale_exponent
+from .common import resolve_blocks, split_scale_exponent
 from .crt_garner import crt_garner
 from .int8_mod_gemm import fused_mod_gemm, int8_mod_gemm_batched
 from .karatsuba_fused import fused_karatsuba_mod_gemm, karatsuba_mod_gemm_batched
@@ -39,6 +45,9 @@ from .residue_cast import residue_cast
 class KernelBackend:
     """Residue backend running the modulus-batched kernels: every primitive
     is one launch (the plain PyTorch versions on CPU tensors)."""
+
+    fused_karatsuba = True
+    modulus_batched = True
 
     @staticmethod
     def _check_method(method):
@@ -64,7 +73,8 @@ class KernelBackend:
         """One batched launch per K-chunk; the inter-chunk sym_mod runs in
         the kernel epilogue via the carry input."""
         return chunked_residue_matmul(
-            lambda a, b, carry: int8_mod_gemm_batched(a, b, moduli=ctx.moduli, carry=carry),
+            lambda a, b, carry: int8_mod_gemm_batched(
+                a, b, moduli=ctx.moduli, carry=carry, tile=_tile("kernel", "real", a, b)),
             ares, bres,
         )
 
@@ -73,7 +83,8 @@ class KernelBackend:
         the CR/CI chunk carries folded into its epilogue."""
         return chunked_residue_matmul(
             lambda a, b, carry: karatsuba_mod_gemm_batched(
-                a[0], a[1], b[0], b[1], moduli=ctx.moduli, carry=carry
+                a[0], a[1], b[0], b[1], moduli=ctx.moduli, carry=carry,
+                tile=_tile("kernel", "complex", a[0], b[0]),
             ),
             (arr, ari), (brr, bri),
         )
@@ -91,6 +102,13 @@ class KernelBackend:
         if out_dd:
             return out[:, 0].double() + out[:, 1].double()
         return out
+
+
+def _tile(family, dclass, a, b):
+    """The tile of one launch on (N, m, k) x (N, k, n) planes (or on (m, k)
+    x (k, n) operands)."""
+    m, k = a.shape[-2:]
+    return resolve_blocks(family, dclass, m, b.shape[-1], k)
 
 
 def _dd_sum(out):
@@ -126,6 +144,7 @@ class FusedBackend(KernelBackend):
         out = fused_mod_gemm(
             a, b, e_mu, e_nu, ctx, n_limbs=n_limbs, out_dd=out_dd, b_res=b_res,
             chunk_limit=self._chunk_limit(),
+            tile=_tile("fused", "real", a, b if b_res is None else b_res),
         )
         return _dd_sum(out) if out_dd else out
 
@@ -135,6 +154,7 @@ class FusedBackend(KernelBackend):
         cr, ci = fused_karatsuba_mod_gemm(
             ar, ai, br, bi, e_mu, e_nu, ctx, n_limbs=n_limbs, out_dd=out_dd, b_res=b_res,
             chunk_limit=self._chunk_limit(),
+            tile=_tile("fused", "complex", ar, br if b_res is None else b_res[0]),
         )
         return (_dd_sum(cr), _dd_sum(ci)) if out_dd else (cr, ci)
 
@@ -155,14 +175,12 @@ class Fp8Backend(KernelBackend):
     the reference's capability declarations.
     """
 
-    fused_karatsuba = True
-    modulus_batched = True
     engine = "fp8"
 
     def residue_matmul(self, ares, bres, ctx: CRTContext):
         return chunked_residue_matmul(
             lambda a, b, carry: fp8_mod_gemm.fp8_mod_gemm_batched(
-                a, b, moduli=ctx.moduli, carry=carry),
+                a, b, moduli=ctx.moduli, carry=carry, tile=_tile("fp8", "real", a, b)),
             ares, bres,
             chunk_limit=fp8_mod_gemm.FP8_K_CHUNK_LIMIT,  # read at call time: tests patch it
         )
@@ -170,7 +188,8 @@ class Fp8Backend(KernelBackend):
     def karatsuba(self, arr, ari, brr, bri, ctx: CRTContext):
         return chunked_residue_matmul(
             lambda a, b, carry: fp8_mod_gemm.fp8_karatsuba_mod_gemm_batched(
-                a[0], a[1], b[0], b[1], moduli=ctx.moduli, carry=carry),
+                a[0], a[1], b[0], b[1], moduli=ctx.moduli, carry=carry,
+                tile=_tile("fp8", "complex", a[0], b[0])),
             (arr, ari), (brr, bri),
             chunk_limit=fp8_mod_gemm.FP8_K_CHUNK_LIMIT,
         )

@@ -15,6 +15,13 @@ launch) and ``"fp8"`` (4 launches, the products on the e4m3 engine), all
 bitwise equal.  On each of them the d/zgemm results are float64-shaped but
 f32-grade, as in the reference: the residue cast quantizes through float32.
 
+Automatic choices: ``GemmPolicy(formulation="auto")``, ``mode="auto"`` with
+``rtol`` (or ``matmul(..., rtol=)``) and a pinned ``calibration=`` file
+written by ``python -m repro_torch.tune`` run as in the reference, priced
+by the port's performance model against the measured card (the GH200
+preset without a calibration); a calibration also picks the kernels'
+tuned tiles, which never change the bits.
+
 Prepared serving: `prepare_weights` casts the ``"w"`` weights of a param
 tree once; `matmul` and the BLAS wrappers accept such a right-side
 `PreparedOperand` in place of the weight::
@@ -94,7 +101,10 @@ def matmul(x, w, *, policy: GemmPolicy | None = None, rtol: float | None = None,
     x: (..., m, k); w: (k, n), a batched (..., k, n) operand, or a
     right-side `PreparedOperand` (which stays where it was prepared).  A 2D
     `w` flattens x's leading dims into rows, as in the reference.  `rtol`
-    is shorthand for ``dataclasses.replace(policy, rtol=rtol)``.
+    is shorthand for ``dataclasses.replace(policy, rtol=rtol)``: the moduli
+    count (and with ``mode="auto"`` the scaling mode) is then resolved per
+    call as the cheapest plan whose componentwise error bound provably meets
+    the tolerance (`core.accuracy`), a 2D product probing its operands.
     """
     policy = current_policy() if policy is None else policy
     if rtol is not None:
@@ -114,6 +124,10 @@ def matmul(x, w, *, policy: GemmPolicy | None = None, rtol: float | None = None,
     if policy.backend == "native":
         y = torch.matmul(x, w)
         return y if policy.out_dtype is None else y.to(DTYPES[policy.out_dtype])
+    if policy.is_adaptive:
+        # resolve statically (one plan for every batch element); the 2D
+        # path above additionally probes the concrete operands
+        policy = policy.resolve_adaptive(x.shape[-2], x.shape[-1], w.shape[-1])
     return emulated_matmul(x, w, policy)
 
 

@@ -5,6 +5,7 @@ reference's JAX function and its port counterpart.  Tolerance: none — the
 CRT tables, scaling exponents and plans are compared for equality.  Also
 here: the port imports no JAX and nothing of `repro`.
 """
+import itertools
 import os
 import pathlib
 import re
@@ -121,9 +122,23 @@ def test_n_block_slices_match(n_block):
     assert tp.n_block_slices(20000) == jp.n_block_slices(20000)
 
 
-def test_auto_formulation_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tplan.make_plan("complex64", formulation="auto", shape=(8, 8, 8))
+@pytest.mark.parametrize("mega", [False, True], ids=["batched", "megakernel"])
+def test_auto_formulation_matches(mega):
+    """make_plan(formulation='auto') picks the reference's formulation for
+    the same `hw` (passed on both sides: the port's default differs)."""
+    from repro.core import perfmodel as jpm
+    from repro_torch.core import perfmodel as tpm
+
+    for name, mode, dtype, shape, batched, fused_k in itertools.product(
+            sorted(jpm.HARDWARE), ("fast", "accu"), ("complex64", "complex128"),
+            [(8, 8, 8), (96, 96, 96), (4096, 4096, 4096), (64, 70000, 32)], (False, True), (False, True)):
+        kw = dict(mode=mode, formulation="auto", shape=shape, fused_karatsuba=fused_k,
+                  modulus_batched=batched, megakernel=mega)
+        jp = jplan.make_plan(dtype, hw=jpm.HARDWARE[name], **kw)
+        tp = tplan.make_plan(dtype, hw=tpm.HARDWARE[name], **kw)
+        assert tp.formulation == jp.formulation, (name, kw)
+    with pytest.raises(ValueError, match="shape"):
+        tplan.make_plan("complex64", formulation="auto")
 
 
 def test_expansion_bitwise(rng):

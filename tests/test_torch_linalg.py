@@ -112,15 +112,12 @@ def test_matmul_under_ambient_policy(rng):
     [
         {"execution": "reference"},
         {"execution": "per_modulus_kernel"},
-        {"execution": "fp8", "formulation": "auto"},
-        {"execution": "kernel", "formulation": "auto"},
         {"execution": "sharded"},
     ],
-    ids=["reference", "per_modulus_kernel", "fp8", "formulation-auto", "sharded"],
+    ids=["reference", "per_modulus_kernel", "sharded"],
 )
 def test_unported_executions_raise(rng, fields):
-    """Executions not ported raise; so does a knob not ported on one that is
-    (the fp8 case: `execution="fp8"` runs, `formulation="auto"` does not)."""
+    """Executions not ported raise."""
     a, b = _operands(rng, np.complex64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tl.cgemm(a, b, policy=repro_torch.GemmPolicy(**fields), device="cpu")
@@ -128,12 +125,94 @@ def test_unported_executions_raise(rng, fields):
 
 @pytest.mark.parametrize(
     "fields",
-    [{"rtol": 1e-6}, {"mode": "auto"}, {"mesh": object()}, {"calibration": "cal.json"}],
-    ids=["rtol", "mode-auto", "mesh", "calibration"],
+    [{"mesh": object()}, {"shard_axes": ("residue", "m", "n")}],
+    ids=["mesh", "shard_axes"],
 )
 def test_unported_policy_fields_raise(fields):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         repro_torch.GemmPolicy(backend="ozaki2_f32", execution="kernel", **fields)
+
+
+#: a measured HW that makes mode='auto' pick differently from the presets
+_MEAS = {"mem_bw": 1e9, "int8_ops": 5e12, "gemm_launch_s": 5e-3}
+
+
+def _same_calibration():
+    """The same measurement active on both sides, each keyed to its process."""
+    from repro.core.perfmodel import HW as JHW
+    from repro.tune import cache as jcache
+    from repro_torch.core.perfmodel import HW as THW
+    from repro_torch.tune import cache as tcache
+
+    jcal = jcache.Calibration(hw=JHW.from_calibration(_MEAS), **jcache.live_key())
+    tcal = tcache.Calibration(hw=THW.from_calibration(_MEAS), **tcache.live_key("cpu"))
+    return jcache, jcal, tcache, tcal
+
+
+@pytest.mark.parametrize(
+    "fields",
+    [
+        {"rtol": 1e-6},
+        {"rtol": 1e-3, "mode": "auto"},
+        {"execution": "kernel", "formulation": "auto", "n_block": "auto"},
+        {"execution": "fused", "formulation": "auto"},
+        {"execution": "fp8", "formulation": "auto", "rtol": 1e-5, "mode": "auto"},
+    ],
+    ids=["rtol", "mode-auto", "formulation-auto", "fused-formulation-auto", "fp8-auto"],
+)
+@pytest.mark.parametrize("routine", ["dgemm", "cgemm", "zgemm"])
+def test_automatic_policy_fields_bitwise(rng, routine, fields):
+    """rtol / mode='auto' / formulation='auto' run in the port and resolve as
+    in the reference (the same measured HW active on both sides): bitwise
+    equal outputs."""
+    fields = {"execution": "kernel", **fields}
+    a, b = _operands(rng, ROUTINES[routine])
+    jcache, jcal, tcache, tcal = _same_calibration()
+    jpol = JPolicy(interpret=True, **fields)
+    tpol = policy_from_fields(dataclasses.asdict(jpol))
+    with jcache.use_calibration(jcal):
+        want = np.asarray(getattr(repro.linalg, routine)(jnp.asarray(a), jnp.asarray(b), policy=jpol))
+    with tcache.use_calibration(tcal):
+        got = getattr(tl, routine)(a, b, policy=tpol, device="cpu").numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_matmul_rtol_keyword_bitwise(rng):
+    """linalg.matmul(..., rtol=) resolves the moduli count per call as the
+    reference does (its operand probe included)."""
+    a, b = _operands(rng, np.float64)
+    jpol = JPolicy(backend="ozaki2_f64", execution="kernel", interpret=True)
+    tpol = repro_torch.GemmPolicy(backend="ozaki2_f64", execution="kernel")
+    for rtol in (1e-4, 1e-10):
+        want = np.asarray(repro.linalg.matmul(jnp.asarray(a), jnp.asarray(b), policy=jpol, rtol=rtol))
+        got = tl.matmul(a, b, policy=tpol, rtol=rtol, device="cpu").numpy()
+        np.testing.assert_array_equal(got, want)
+    # a looser tolerance provably needs fewer moduli
+    assert tpol.__class__(backend="ozaki2_f64", rtol=1e-4, execution="kernel").plan_for(32, 96, 24).n_moduli < \
+        tpol.__class__(backend="ozaki2_f64", rtol=1e-10, execution="kernel").plan_for(32, 96, 24).n_moduli
+    with pytest.raises(ValueError, match="rtol must be > 0"):
+        repro_torch.GemmPolicy(backend="ozaki2_f64", rtol=0.0)
+    with pytest.raises(ValueError, match="rtol"):
+        repro_torch.GemmPolicy(backend="ozaki2_f64", mode="auto")
+
+
+def test_pinned_calibration_file_bitwise(rng, tmp_path):
+    """GemmPolicy(calibration=path) with a cache of the same measurement on
+    each side (the port's with tuned tiles): bitwise equal outputs."""
+    jcache, jcal, tcache, tcal = _same_calibration()
+    from repro_torch.tune.cache import block_key
+
+    tcal = tcal.with_blocks({block_key("kernel", "complex", 32, 24, 96): (64, 64, 64)})
+    jpath = jcache.save_calibration(jcal, str(tmp_path / "repro.json"))
+    tpath = tcache.save_calibration(tcal, str(tmp_path / "repro_torch.json"))
+    fields = dict(backend="ozaki2_c128", formulation="auto", mode="auto", rtol=1e-6, execution="kernel")
+    a, b = _operands(rng, np.complex128)
+    want = np.asarray(repro.linalg.matmul(
+        jnp.asarray(a), jnp.asarray(b), policy=JPolicy(interpret=True, calibration=jpath, **fields)))
+    tpol = repro_torch.GemmPolicy(calibration=tpath, **fields)
+    got = tl.matmul(a, b, policy=tpol, device="cpu").numpy()
+    np.testing.assert_array_equal(got, want)
+    assert tpol.resolved_calibration() == tcal
 
 
 def test_unported_backward_raises(rng):

@@ -1,0 +1,91 @@
+#!/usr/bin/env python3
+"""Time the six GEMM kernels of one checkout's `repro_torch` on the card.
+
+Each kernel runs at the main path's shape (m = n = k = 4096; N = 8 moduli
+real, 14 complex) through its wrapper's plain call, which launches the
+kernel's default tile, and is timed with CUDA events (mean of `--reps`
+launches after a warm-up; one launch for the two megakernels).  The call
+takes no tile argument, so the script also times a checkout from before the
+kernels took one.  To compare two checkouts, run it on both on the same
+card within one job, in turns (a, b, b, a):
+
+    python3 tools/kernel_times.py --src PATH/TO/CHECKOUT/src
+
+It builds that checkout's kernels first (into its `build/`) and prints one
+JSON line: {"src", "card", "ms": {kernel: ms}}.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+import numpy as np
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", required=True, help="the `src` directory of the checkout to time")
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+    sys.path.insert(0, args.src)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.core.moduli import make_crt_context
+    from repro_torch.core.plan import n_limbs_for_ctx
+    from repro_torch.kernels import build, fp8_mod_gemm, int8_mod_gemm, karatsuba_fused
+
+    build.build_all()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    size = 4096
+
+    def planes(n_mod, shape):
+        return torch.from_numpy(rng.integers(-60, 61, (n_mod, *shape), dtype=np.int8)).to(dev)
+
+    def mant(shape):
+        return torch.from_numpy(rng.integers(-500, 501, shape).astype(np.float32)).to(dev)
+
+    real, cplx = make_crt_context(8), make_crt_context(14)
+    a, b = planes(8, (size, size)), planes(8, (size, size))
+    ar, ai, br, bi = (planes(14, (size, size)) for _ in range(4))
+    fa, fb = mant((size, size)), mant((size, size))
+    far, fai, fbr, fbi = (mant((size, size)) for _ in range(4))
+    zeros = torch.zeros(size, dtype=torch.int32, device=dev)
+    calls = {
+        "int8_mod_gemm": (lambda: int8_mod_gemm.int8_mod_gemm_batched(a, b, moduli=real.moduli),
+                          args.reps),
+        "karatsuba_fused": (lambda: karatsuba_fused.karatsuba_mod_gemm_batched(
+            ar, ai, br, bi, moduli=cplx.moduli), args.reps),
+        "fused_mod_gemm": (lambda: int8_mod_gemm.fused_mod_gemm(
+            fa, fb, zeros, zeros, real, n_limbs=n_limbs_for_ctx(real)), 1),
+        "fused_karatsuba": (lambda: karatsuba_fused.fused_karatsuba_mod_gemm(
+            far, fai, fbr, fbi, zeros, zeros, cplx, n_limbs=n_limbs_for_ctx(cplx)), 1),
+        "fp8_mod_gemm": (lambda: fp8_mod_gemm.fp8_mod_gemm_batched(a, b, moduli=real.moduli),
+                         args.reps),
+        "fp8_karatsuba": (lambda: fp8_mod_gemm.fp8_karatsuba_mod_gemm_batched(
+            ar, ai, br, bi, moduli=cplx.moduli), args.reps),
+    }
+    ms = {}
+    for name, (fn, reps) in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms[name] = start.elapsed_time(end) / reps
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(json.dumps({"src": args.src, "card": card, "ms": ms}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
