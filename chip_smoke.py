@@ -11,11 +11,12 @@ It imports torch, numpy and `repro_torch` only.  Inputs come from
 Any mismatch or exception ends the run with a non-zero exit; no phase's
 failure is caught.
 
-1. Build the nine CUDA sources of `src/repro_torch/kernels/csrc`, one
+1. Build the ten CUDA sources of `src/repro_torch/kernels/csrc`, one
    `nvcc` each, all at once, and print ptxas's registers and spills for
-   every compiled tile of the six GEMM kernels.
+   every compiled tile of the six GEMM kernels and every compiled (type,
+   head dim) of the attention kernel.
 2. Hold each kernel against its plain PyTorch version on the card, bitwise
-   (`torch.equal`): the chain scale -> cast (rows and columns, S = 1 or 2)
+   (`torch.equal`) except attention: the chain scale -> cast (rows and columns, S = 1 or 2)
    -> product (with and without carry) -> Garner (f32 and double-single) at
    a ragged (257, 1000, 129) and at the main path's 4096^3 (N = 8 real,
    N = 14 complex).  Times each kernel and its plain version at the main
@@ -46,6 +47,24 @@ failure is caught.
    events paced by the host, by host wall time through its wrapper (what
    the calibration measures), and `x.clone()` beside it (the library call
    that computes the same function).
+   The attention kernel (`flash_attention`) against `flash_attention_plain`
+   in the working type (the kernel sums in another order and rounds P to
+   bf16 for the PV product): f32 within 2e-5, the reference test's
+   tolerance; bf16 elementwise within 2^-7 |plain| (both roundings to bf16)
+   plus 2e-2 times the RMS of the plain output's row (`attention_row_err`),
+   and the plain version with P rounded to e4m3 must break that limit at
+   every shape (`tools/attention_check.py` has the readings over seeds):
+   the CPU tests' sweep (2,256,4,2,64), (1,512,8,1,32),
+   (2,128,4,4,64), a ragged s = 200 and Sk = 256 != S = 128, each in f32 and
+   bf16, causal and not; every compiled head dim at (1,320,8,2,D) with
+   blocks of 64; and Qwen2.5-32B's widths (H = 40, KV = 8, D = 128, B = 1)
+   causal, in f32 at S = ATTN_F32_S = 4096 and in bf16 at one 32k prefill
+   (ATTN_FULL).  Both full-width shapes are timed with CUDA events beside
+   the plain version; at 32k also `torch.nn.functional.
+   scaled_dot_product_attention` (is_causal, enable_gqa) on the (B,H,S,D)
+   views, the library call computing the same function, with its default
+   backend (its max difference from the kernel is printed for information;
+   the port never calls it).
 3. End to end through `repro_torch.linalg`:
    (a) s/d/c/zgemm at 512^3, fast and accu, on `GemmPolicy(execution=
        "kernel")`, `execution="fused"` and `execution="fp8"` (complex also
@@ -87,6 +106,13 @@ failure is caught.
    `kernel_launch_count`, timed beside the uncalibrated run.  Prints the
    plans `formulation="auto"` and `rtol=1e-6` / `mode="auto"` resolve to
    for zgemm 4096^3 under the calibration and under the preset.
+6. Attention prefill: `repro_torch.kernels.flash_attention.flash_attention`
+   on phase 2's full-width bf16 inputs (one causal 32k prefill at
+   Qwen2.5-32B's widths), called 1 + 3 times with the launch counters zeroed
+   just before and read just after: exactly one `flash_attention` launch a
+   call and no other kernel; each output bitwise equal to the one phase 2
+   held against the plain version.  Prints the ms a call and the TFLOP/s
+   over the causal half's 2 D H S^2 flop.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit from nvidia-smi, and {"ok": true, "device": {...}}.
@@ -111,6 +137,7 @@ PHI = 0.5
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
 FP8_OPS_S = 1979e12
+BF16_OPS_S = 989e12
 F32_OPS_S = 67e12
 
 # the Pallas kernel each CUDA kernel replaces
@@ -124,10 +151,12 @@ KERNELS = {
     "fp8_mod_gemm": "src/repro/kernels/fp8_mod_gemm.py:85",
     "fp8_karatsuba": "src/repro/kernels/fp8_mod_gemm.py:171",
     "launch_copy": "src/repro/tune/calibrate.py:138",
+    "flash_attention": "src/repro/kernels/flash_attention.py:24",
 }
 # the main path whose launch counts each kernel reports
 PATH_OF = {name: name.split("_")[0] if name.startswith(("fused", "fp8")) else "kernel" for name in KERNELS}
 PATH_OF["launch_copy"] = "tune"
+PATH_OF["flash_attention"] = "attention"
 
 COPY_SHAPE = (8, 128)      # the calibration's launch-timing tile
 RAGGED = (257, 1000, 129)  # (m, k, n) off every tile multiple
@@ -138,6 +167,13 @@ RAGGED_CHUNK = 256         # chunk_limit forcing in-kernel reductions at RAGGED
 SERVE_N = 8192             # the prepared weight's k = n
 SERVE_M = (128, 1024, 8192)  # the rows of the serving requests
 SERVE_M_FP8 = (1024,)      # the rows of the fp8 serving request
+ATTN_FULL = (1, 32768, 40, 8, 128)  # (B, S, H, KV, D): one 32k prefill of Qwen2.5-32B
+ATTN_F32_S = 4096          # the f32 check's sequence, at the same heads
+ATTN_SWEEP = ((2, 256, 4, 2, 64), (1, 512, 8, 1, 32), (2, 128, 4, 4, 64))  # (B, S, H, KV, D)
+ATTN_HEAD_DIM_S = 320      # the per-head-dim checks' sequence (blocks of 64)
+ATTN_F32_TOL = 2e-5        # f32: max|kernel - plain|, tests/test_kernels.py's tolerance
+ATTN_BF16_ROW_TOL = 2e-2   # bf16: the largest `attention_row_err` of kernel against plain
+ATTN_CONTROL = torch.float8_e4m3fn  # the plain version with P in this type must read over it
 
 
 def phi_matrix(rng, shape, phi, dtype):
@@ -188,15 +224,20 @@ def tile_label(tile) -> str:
     return "x".join(str(x) for x in tile)
 
 
-TILE_RE = re.compile(r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E")
+# how a source's compiled variants are labelled, from their mangled names:
+# by Tile<BM,BN,BK,WARPS_N> (the GEMM kernels), or as the source lists here
+TILE_LABEL = (re.compile(r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E"), lambda g: "tile " + tile_label(g[:3]))
+PTXAS_LABELS = {"flash_attention": (re.compile(r"fa_(f32|bf16)_kernelILi(\d+)E"), lambda g: f"{g[0]} D={g[1]}")}
 
 
 def ptxas_tiles(logs):
-    """{source: {tile label: (most registers, most spill-store bytes, variants)}}
-    over every compiled variant (VEC, N bound, prepared) of each tile, from
-    the `-Xptxas -v` reports."""
+    """{source: {label: (most registers, most spill-store bytes, variants)}}
+    over every compiled variant of each label (a GEMM tile's VEC, N bound
+    and prepared variants; an attention (type, head dim)), from the
+    `-Xptxas -v` reports."""
     out = {}
     for name, log in logs.items():
+        label_re, label_of = PTXAS_LABELS.get(name, TILE_LABEL)
         entry, spill = None, 0
         for line in log.splitlines():
             m = re.search(r"Function properties for (\S+)", line)
@@ -207,13 +248,37 @@ def ptxas_tiles(logs):
                 spill = int(m.group(1))
             m = re.search(r"Used (\d+) registers", line)
             if m and entry is not None:
-                t = TILE_RE.search(entry)
+                t = label_re.search(entry)
                 if t:
-                    label = tile_label(int(x) for x in t.groups()[:3])
+                    label = label_of(t.groups())
                     regs, spills, count = out.setdefault(name, {}).get(label, (0, 0, 0))
                     out[name][label] = (max(regs, int(m.group(1))), max(spills, spill), count + 1)
                 entry = None
     return out
+
+
+def attention_row_err(got, want):
+    """The bf16 check's reading: the largest (|got - want| - 2^-7 |want|) /
+    rms(want's row) over the elements.  2^-7 |want| is what rounding both
+    outputs to bf16 can add (half an ulp each); the rest is their difference
+    before that rounding (P rounded to bf16, the order of the sums), which
+    scales with the size of the row: the RMS over the head dim of want's
+    (b, s, h) row.  An absolute limit would bind only on the first rows,
+    whose outputs average few keys and are 20-80x larger than the 32k
+    prefill's last rows."""
+    g, w = got.float(), want.float()
+    row = w.square().mean(-1, keepdim=True).sqrt_()
+    return float(((g - w).abs_() - w.abs() * 2.0**-7).div_(row).max())
+
+
+def attention_work(q, k, causal):
+    """(bytes, flop) the attention function needs: q, k, v read once and o
+    written once; 4 D flop for each (query, key) pair the mask keeps (QK^T
+    and PV), in each query head."""
+    b, s, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    pairs = sum(min(i + 1, sk) for i in range(s)) if causal else s * sk
+    return q.element_size() * b * d * (2 * s * h + 2 * sk * kv), 4 * d * h * b * pairs
 
 
 def card_line() -> str:
@@ -320,6 +385,107 @@ class KernelChecks:
         print(f"  launch_copy: wall_ms through the wrapper (median of 200, synchronized)="
               f"{rec['wall_ms']:.5f} library_ms (x.clone(), queue held full)={rec['library_ms']:.5f}",
               flush=True)
+
+    def attention_inputs(self, b, s, h, kv, d, dtype, sk=None):
+        """Standard-normal q (B,S,H,D), k and v (B,Sk,KV,D) from the run's rng,
+        in f32 and rounded once to `dtype`, on the card."""
+        sk = s if sk is None else sk
+        return tuple(
+            torch.from_numpy(self.rng.standard_normal(shape, dtype=np.float32)).to(self.dev).to(dtype)
+            for shape in ((b, s, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+
+    def attention_case(self, q, k, v, *, causal=True, timed=False, **blocks):
+        """The attention kernel against its plain version on the same inputs,
+        in the working type: f32 within `ATTN_F32_TOL` of it, bf16 within
+        `ATTN_BF16_ROW_TOL` by `attention_row_err`, where the plain version
+        with P rounded to `ATTN_CONTROL` must read over that limit.  With
+        `timed`, both timed (CUDA events) with the bound of this shape.
+        Returns the kernel's output."""
+        from repro_torch.kernels import flash_attention as fa
+
+        got = fa.flash_attention(q, k, v, causal=causal, **blocks)
+        want = fa.flash_attention_plain(q, k, v, causal=causal, **blocks)
+        b, s, h, d = q.shape
+        label = (f"B={b} S={s} Sk={k.shape[1]} H={h} KV={k.shape[2]} D={d} "
+                 f"{str(q.dtype).removeprefix('torch.')} {'causal' if causal else 'full'}")
+        if got.dtype != q.dtype or got.shape != q.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention {label}: not a finite tensor of q's type and shape")
+        err = float((got.float() - want.float()).abs().max())
+        rec = self.record["flash_attention"]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        by_type = rec.setdefault("max_abs_err_by_type", {})
+        key = str(q.dtype).removeprefix("torch.")
+        by_type[key] = max(by_type.get(key, 0.0), err)
+        if q.dtype == torch.float32:
+            if not err <= ATTN_F32_TOL:
+                raise AssertionError(f"flash_attention {label}: max|kernel - plain| = {err} > {ATTN_F32_TOL}")
+            line = f"  flash_attention {label}: max_abs_err={err:.3e} (limit {ATTN_F32_TOL:g})"
+        else:
+            row_err = attention_row_err(got, want)
+            control = attention_row_err(
+                fa.flash_attention_plain(q, k, v, causal=causal, p_dtype=ATTN_CONTROL, **blocks), want)
+            if not row_err <= ATTN_BF16_ROW_TOL:
+                raise AssertionError(f"flash_attention {label}: row_err {row_err} > {ATTN_BF16_ROW_TOL}")
+            if not control > ATTN_BF16_ROW_TOL:
+                raise AssertionError(f"flash_attention {label}: the control (P in {ATTN_CONTROL}) reads "
+                                     f"{control} <= {ATTN_BF16_ROW_TOL}; the limit would not see it")
+            rec["row_err"] = max(rec.get("row_err", 0.0), row_err)
+            rec["control_row_err"] = min(rec.get("control_row_err", float("inf")), control)
+            line = (f"  flash_attention {label}: max_abs_err={err:.3e} row_err={row_err:.3e} "
+                    f"(limit {ATTN_BF16_ROW_TOL:g}; control, P in e4m3: {control:.3e})")
+        if timed:
+            nbytes, flop = attention_work(q, k, causal)
+            peak = BF16_OPS_S if q.dtype == torch.bfloat16 else F32_OPS_S
+            byte_ms, op_ms = nbytes / HBM_BYTES_S * 1e3, flop / peak * 1e3
+            row = {
+                "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal, **blocks), 3),
+                "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal, **blocks), 1),
+                "bound_ms": max(byte_ms, op_ms),
+                "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                "shape": label,
+            }
+            line += (f" kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                     f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+                     f"TFLOP/s={flop / row['ms'] / 1e9:.1f}")
+            if q.dtype == torch.bfloat16:
+                rec.update(row)
+            else:
+                rec["f32"] = row
+        print(line, flush=True)
+        return got
+
+    def attention(self):
+        """Phase 2's attention checks (see the module docstring).  Keeps the
+        full-width bf16 inputs and the kernel's output for phase 6."""
+        import torch.nn.functional as F
+
+        from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                for shape in ATTN_SWEEP:
+                    self.attention_case(*self.attention_inputs(*shape, dtype), causal=causal)
+                self.attention_case(*self.attention_inputs(1, 200, 4, 2, 32, dtype), causal=causal)
+                self.attention_case(*self.attention_inputs(1, 128, 4, 2, 64, dtype, sk=256), causal=causal)
+            for d in HEAD_DIMS:
+                self.attention_case(*self.attention_inputs(1, ATTN_HEAD_DIM_S, 8, 2, d, dtype), bq=64, bk=64)
+        b, s, h, kv, d = ATTN_FULL
+        self.attention_case(*self.attention_inputs(b, ATTN_F32_S, h, kv, d, torch.float32), timed=True)
+        torch.cuda.empty_cache()
+        q, k, v = self.attention_inputs(b, s, h, kv, d, torch.bfloat16)
+        out = self.attention_case(q, k, v, timed=True)
+
+        def library():
+            return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                                  is_causal=True, enable_gqa=True)
+
+        rec = self.record["flash_attention"]
+        rec["library_max_abs_diff"] = float((library().transpose(1, 2).float() - out.float()).abs().max())
+        rec["library_ms"] = cuda_ms(library, 3)
+        print(f"  flash_attention {rec['shape']}: library_ms (scaled_dot_product_attention, default "
+              f"backend)={rec['library_ms']:.4f}, max|library - kernel|="
+              f"{rec['library_max_abs_diff']:.3e} (for information)", flush=True)
+        self.full_attention = (q, k, v, out)
 
     def compare(self, name, kernel, plain, *, timed=None):
         """Run `kernel()` and `plain()`, require equal bits, and with `timed`
@@ -949,6 +1115,29 @@ def tuning(results, GemmPolicy, linalg, kernels):
     return tune_counts
 
 
+def attention_prefill(full, kernels):
+    """Phase 6: the attention entry point on phase 2's full-width bf16
+    inputs, 1 + 3 calls, one launch each.  Returns the launch counts."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, checked = full
+    kernels.reset_launches()
+    first = fa.flash_attention(q, k, v)
+    y, ms = timed_calls(lambda: fa.flash_attention(q, k, v), 3)
+    counts = kernels.launch_counts()
+    want = {name: 4 if name == "flash_attention" else 0 for name in counts}
+    if counts != want:
+        raise AssertionError(f"attention prefill: launches {counts}, expected {want}")
+    if not (torch.equal(first, checked) and torch.equal(y, checked)):
+        raise AssertionError("attention prefill: differs from the output phase 2 held against the plain version")
+    b, s, h, _ = q.shape
+    _, flop = attention_work(q, k, True)
+    print(f"  flash_attention prefill B={b} S={s} H={h} KV={k.shape[2]} D={q.shape[3]} bf16 causal: "
+          f"ms/call={ms:.3f} ({flop / ms / 1e9:.1f} TFLOP/s over {flop:.4e} flop) launches/call=1 "
+          f"== phase 2's checked output, bitwise", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the card", file=sys.stderr)
@@ -969,7 +1158,7 @@ def main() -> int:
     for name, log in logs.items():
         if name in ptxas:
             for label, (regs, spill, count) in ptxas[name].items():
-                print(f"  {name} tile {label}: at most {regs} registers and {spill} bytes of spill "
+                print(f"  {name} {label}: at most {regs} registers and {spill} bytes of spill "
                       f"stores over its {count} compiled variants", flush=True)
             continue
         for line in log.splitlines():
@@ -978,7 +1167,8 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
-    print("phase 2: kernels against their plain versions, bitwise", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 products in full f32
+    print("phase 2: kernels against their plain versions, bitwise (attention within its tolerance)", flush=True)
     checks = KernelChecks(rng, dev)
     checks.chain(RAGGED, np.float32, 8, timed=False)
     checks.chain(RAGGED, np.complex64, 14, timed=False)
@@ -989,8 +1179,9 @@ def main() -> int:
     checks.megakernels((MAIN, MAIN, MAIN), np.complex128, 14, chunk_limit=1 << 17, timed=True)
     checks.fp8_worst_case()
     checks.launch_copy()
+    checks.attention()
     torch.cuda.synchronize()
-    print(f"  all {len(KERNELS)} kernels equal their plain versions", flush=True)
+    print(f"  all {len(KERNELS)} kernels agree with their plain versions", flush=True)
 
     print(f"phase 3a: {SMALL}^3 end to end, card vs device='cpu'", flush=True)
     end_to_end_cpu_parity(rng, dev, GemmPolicy, linalg)
@@ -1015,7 +1206,11 @@ def main() -> int:
     print("phase 5: tuning", flush=True)
     tune_counts = tuning(results, GemmPolicy, linalg, kernels)
 
-    launches = {"kernel": counts, "fused": fused_counts, "fp8": fp8_counts, "tune": tune_counts}
+    print("phase 6: attention prefill", flush=True)
+    attention_counts = attention_prefill(checks.full_attention, kernels)
+
+    launches = {"kernel": counts, "fused": fused_counts, "fp8": fp8_counts, "tune": tune_counts,
+                "attention": attention_counts}
     record = []
     for name, replaces in KERNELS.items():
         r = checks.record[name]
@@ -1038,6 +1233,11 @@ def main() -> int:
             "int_mm_ms": r.get("int_mm_ms"),
             "scaled_mm_ms": r.get("scaled_mm_ms"),
             "kernel_path_ms": r.get("kernel_path_ms"),
+            "f32": r.get("f32"),
+            "max_abs_err_by_type": r.get("max_abs_err_by_type"),
+            "row_err": r.get("row_err"),
+            "control_row_err": r.get("control_row_err"),
+            "library_max_abs_diff": r.get("library_max_abs_diff"),
             "shape": r["shape"],
         })
     print(json.dumps({"kernels": record}), flush=True)

@@ -1,6 +1,8 @@
 """The port's Hopper kernels, each with its plain PyTorch version and a
 launch counter (`<wrapper>.launches`), and the residue backends."""
-from . import crt_garner, fp8_mod_gemm, int8_mod_gemm, karatsuba_fused, launch_copy, residue_cast
+from . import (
+    crt_garner, flash_attention, fp8_mod_gemm, int8_mod_gemm, karatsuba_fused, launch_copy, residue_cast,
+)
 
 #: the wrapper of each kernel, by the name of its CUDA source
 WRAPPERS = {
@@ -13,6 +15,7 @@ WRAPPERS = {
     "fp8_mod_gemm": fp8_mod_gemm.fp8_mod_gemm_batched,
     "fp8_karatsuba": fp8_mod_gemm.fp8_karatsuba_mod_gemm_batched,
     "launch_copy": launch_copy.launch_copy,
+    "flash_attention": flash_attention.flash_attention,
 }
 
 

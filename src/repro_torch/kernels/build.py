@@ -30,6 +30,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 SOURCES = (
     "residue_cast", "int8_mod_gemm", "karatsuba_fused", "crt_garner",
     "fused_mod_gemm", "fused_karatsuba", "fp8_mod_gemm", "fp8_karatsuba", "launch_copy",
+    "flash_attention",
 )
 HEADERS = ("common.cuh", "gemm_tiles.cuh", "fp8_tiles.cuh", "cast_tile.cuh", "garner_tile.cuh")
 NVCC_FLAGS = (

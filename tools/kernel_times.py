@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""Time the six GEMM kernels of one checkout's `repro_torch` on the card.
+"""Time the six GEMM kernels and the attention kernel of one checkout's
+`repro_torch` on the card.
 
-Each kernel runs at the main path's shape (m = n = k = 4096; N = 8 moduli
-real, 14 complex) through its wrapper's plain call, which launches the
-kernel's default tile, and is timed with CUDA events (mean of `--reps`
-launches after a warm-up; one launch for the two megakernels).  The call
-takes no tile argument, so the script also times a checkout from before the
-kernels took one.  To compare two checkouts, run it on both on the same
-card within one job, in turns (a, b, b, a):
+Each GEMM kernel runs at the main path's shape (m = n = k = 4096; N = 8
+moduli real, 14 complex) through its wrapper's plain call, which launches
+the kernel's default tile; the attention kernel runs one causal 32k prefill
+at Qwen2.5-32B's widths (B = 1, S = 32768, H = 40, KV = 8, D = 128, bf16)
+through `flash_attention`, where the checkout has it.  Each is timed with
+CUDA events (mean of `--reps` launches after a warm-up; one launch for the
+two megakernels).  The calls take no tile argument, so the script also
+times a checkout from before the kernels took one.  To compare two
+checkouts, run it on both on the same card within one job, in turns (a, b,
+b, a):
 
     python3 tools/kernel_times.py --src PATH/TO/CHECKOUT/src
 
@@ -37,6 +41,7 @@ def main() -> int:
         return 1
     from repro_torch.core.moduli import make_crt_context
     from repro_torch.core.plan import n_limbs_for_ctx
+    import repro_torch.kernels as kernels
     from repro_torch.kernels import build, fp8_mod_gemm, int8_mod_gemm, karatsuba_fused
 
     build.build_all()
@@ -70,6 +75,11 @@ def main() -> int:
         "fp8_karatsuba": (lambda: fp8_mod_gemm.fp8_karatsuba_mod_gemm_batched(
             ar, ai, br, bi, moduli=cplx.moduli), args.reps),
     }
+    if "flash_attention" in kernels.WRAPPERS:
+        b, s, h, kv, d = 1, 32768, 40, 8, 128
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev).to(torch.bfloat16)
+                   for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+        calls["flash_attention"] = (lambda: kernels.flash_attention.flash_attention(q, k, v), args.reps)
     ms = {}
     for name, (fn, reps) in calls.items():
         fn()
