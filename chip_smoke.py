@@ -14,7 +14,10 @@ failure is caught.
 1. Build the ten CUDA sources of `src/repro_torch/kernels/csrc`, one
    `nvcc` each, all at once, and print ptxas's registers and spills for
    every compiled tile of the six GEMM kernels and every compiled (type,
-   head dim) of the attention kernel.
+   head dim) of the attention kernel, with the path it takes (bf16: the
+   TMA ring and warp-specialised wgmma kernel; f32: the SIMT kernel).
+   Fails if ptxas serialized any wgmma instructions (its C7512 warning)
+   or if a bf16 attention kernel spills.
 2. Hold each kernel against its plain PyTorch version on the card, bitwise
    (`torch.equal`) except attention: the chain scale -> cast (rows and columns, S = 1 or 2)
    -> product (with and without carry) -> Garner (f32 and double-single) at
@@ -55,7 +58,10 @@ failure is caught.
    and the plain version with P rounded to e4m3 must break that limit at
    every shape (`tools/attention_check.py` has the readings over seeds):
    the CPU tests' sweep (2,256,4,2,64), (1,512,8,1,32),
-   (2,128,4,4,64), a ragged s = 200 and Sk = 256 != S = 128, each in f32 and
+   (2,128,4,4,64), a ragged s = 200, Sk = 256 != S = 128, and two batches
+   of two at Qwen's head dim with a ragged tail (ATTN_BATCH_EDGES:
+   (2,200,8,2,128), and (2,128,8,2,128) with Sk = 200, where a TMA box
+   that crossed a batch would read the next batch's rows), each in f32 and
    bf16, causal and not; every compiled head dim at (1,320,8,2,D) with
    blocks of 64; and Qwen2.5-32B's widths (H = 40, KV = 8, D = 128, B = 1)
    causal, in f32 at S = ATTN_F32_S = 4096 and in bf16 at one 32k prefill
@@ -171,6 +177,9 @@ ATTN_FULL = (1, 32768, 40, 8, 128)  # (B, S, H, KV, D): one 32k prefill of Qwen2
 ATTN_F32_S = 4096          # the f32 check's sequence, at the same heads
 ATTN_SWEEP = ((2, 256, 4, 2, 64), (1, 512, 8, 1, 32), (2, 128, 4, 4, 64))  # (B, S, H, KV, D)
 ATTN_HEAD_DIM_S = 320      # the per-head-dim checks' sequence (blocks of 64)
+# batches of two with a ragged tail, ((B, S, H, KV, D), Sk): S and Sk off every
+# tile multiple, where a TMA box that crossed a batch would read the next batch
+ATTN_BATCH_EDGES = (((2, 200, 8, 2, 128), None), ((2, 128, 8, 2, 128), 200))
 ATTN_F32_TOL = 2e-5        # f32: max|kernel - plain|, tests/test_kernels.py's tolerance
 ATTN_BF16_ROW_TOL = 2e-2   # bf16: the largest `attention_row_err` of kernel against plain
 ATTN_CONTROL = torch.float8_e4m3fn  # the plain version with P in this type must read over it
@@ -227,7 +236,11 @@ def tile_label(tile) -> str:
 # how a source's compiled variants are labelled, from their mangled names:
 # by Tile<BM,BN,BK,WARPS_N> (the GEMM kernels), or as the source lists here
 TILE_LABEL = (re.compile(r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E"), lambda g: "tile " + tile_label(g[:3]))
-PTXAS_LABELS = {"flash_attention": (re.compile(r"fa_(f32|bf16)_kernelILi(\d+)E"), lambda g: f"{g[0]} D={g[1]}")}
+# the path each attention input type takes, at every head dim
+ATTN_PATHS = {"bf16": "TMA ring, warp-specialised wgmma", "f32": "SIMT, 64-row tiles"}
+PTXAS_LABELS = {"flash_attention": (re.compile(r"fa_(f32|bf16)_kernelILi(\d+)E"),
+                                    lambda g: f"{g[0]} D={g[1]} ({ATTN_PATHS[g[0]]})")}
+WGMMA_SERIALIZED = "wgmma.mma_async instructions are serialized"  # ptxas's warning (C7512)
 
 
 def ptxas_tiles(logs):
@@ -467,6 +480,8 @@ class KernelChecks:
                     self.attention_case(*self.attention_inputs(*shape, dtype), causal=causal)
                 self.attention_case(*self.attention_inputs(1, 200, 4, 2, 32, dtype), causal=causal)
                 self.attention_case(*self.attention_inputs(1, 128, 4, 2, 64, dtype, sk=256), causal=causal)
+                for shape, sk in ATTN_BATCH_EDGES:
+                    self.attention_case(*self.attention_inputs(*shape, dtype, sk=sk), causal=causal)
             for d in HEAD_DIMS:
                 self.attention_case(*self.attention_inputs(1, ATTN_HEAD_DIM_S, 8, 2, d, dtype), bq=64, bk=64)
         b, s, h, kv, d = ATTN_FULL
@@ -1155,6 +1170,12 @@ def main() -> int:
     logs = build.build_all()
     print(f"  built {len(logs)} kernel sources in {time.perf_counter() - t0:.2f} s", flush=True)
     ptxas = ptxas_tiles(logs)
+    for name, log in logs.items():
+        if WGMMA_SERIALIZED in log:
+            raise AssertionError(f"{name}: ptxas serialized wgmma instructions:\n{log}")
+    for label, (regs, spill, count) in ptxas["flash_attention"].items():
+        if label.startswith("bf16") and spill:
+            raise AssertionError(f"flash_attention {label}: {spill} bytes of spill stores")
     for name, log in logs.items():
         if name in ptxas:
             for label, (regs, spill, count) in ptxas[name].items():

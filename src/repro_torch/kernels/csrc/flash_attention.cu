@@ -15,25 +15,50 @@
 // TB/s).  The S^2 H / 2 = 2.1e10 exponentials take about 5 ms of the SFU
 // (16 a clock per SM), so the softmax must overlap the products.
 //
-// Design: one block owns one (batch, query head, 64-row q tile) and walks
-// the kv tiles itself, keeping m, l and acc in registers (the TPU carries
-// them in VMEM across a sequential grid axis; here blocks run in no order).
-// The q tile is staged once; each 64-key K and V tile goes through shared
-// memory, zero-filled past Sk.  Causal blocks stop at the diagonal: the kv
-// tiles wholly above it are skipped, which is exact (there the reference's
-// p is 0 and its correction 1).  The diagonal tile and the ragged tail are
-// masked per element; the q tiles run heaviest first.  No pipelining yet.
+// Both paths: a block owns one (batch, query head, q tile) and walks the kv
+// tiles itself, keeping m, l and acc in registers (the TPU carries them in
+// VMEM across a sequential grid axis; here blocks run in no order).  Causal
+// blocks stop at the diagonal: the kv tiles wholly above it are skipped,
+// which is exact (there the reference's p is 0 and its correction 1).  Only
+// the tiles on the diagonal and the ragged tail are masked per element; K and V rows
+// past Sk arrive as zeros (0 times stale data could be NaN).  The q tiles
+// run heaviest first, and blockIdx.x runs over b H + h fastest, so the G
+// query heads of a kv head run together and meet their K and V in L2.
 //
-//  * bf16 in: QK^T and PV on mma.sync.m16n8k16 (bf16 operands, f32
-//    accumulators), four warps of 16 q rows each.  The scale (times log2 e,
-//    for ex2) is applied to the f32 logits, because q * 2^-3.5 is not exact
-//    in bf16.  P is rounded to bf16 for the PV product; l sums the f32 p.
-//  * f32 in: SIMT float FMAs, no TF32, q * (1/sqrt(D)) rounded in f32 as the
-//    reference does.  The build has -fmad=false, so the dot products are
-//    written with explicit __fmaf_rn (one rounding each).
+//  * bf16 in, every head dim (32, 64, 128, 256): FlashAttention-3's shape
+//    (fa_bf16_kernel).  A block of three warpgroups owns 128 q rows.  One
+//    producer thread brings the q tile once and the K and V tiles through
+//    a ring in shared memory by TMA (three stages; two at D = 256),
+//    signalling full barriers (mbarrier, transaction bytes) and waiting on
+//    empty ones; no __syncthreads in the kv loop.  The tensor maps are
+//    4-D, (D, heads, seq, B), so rows past S or Sk are zeros within their
+//    batch.  Each of the two consumer warpgroups owns 64 q rows: S = Q K^T
+//    on wgmma.m64n{BK}k16 (Q and K from shared memory, K-major, 128-byte
+//    swizzle; 64-byte at D = 32) and O += P V on wgmma.m64n{D}k16 (two of
+//    n128 at D = 256) with P from registers (the logits' accumulator
+//    layout is the A fragment) and V from shared memory through the
+//    descriptor's transpose bit (MN-major), so V is never transposed.
+//    Within a warpgroup the softmax of tile j runs while the P V product
+//    of tile j - 1 is in flight: S_j and PV_{j-1} are issued together, the
+//    softmax waits for S_j only, and O takes its correction while S_j is
+//    computed.  (Taking turns between the two warpgroups with named
+//    barriers, FA3's ping-pong, was slower here.)  setmaxnreg gives the
+//    producer 40 registers and the consumers 232.  BK = 128 keys a tile
+//    for D <= 128, 64 at D = 256 (its P V accumulator alone is 128
+//    registers a thread).  The scale (times log2 e, for ex2) is applied to
+//    the f32 logits, because q * 2^-3.5 is not exact in bf16; P is rounded
+//    to bf16 for the PV product only; l sums the f32 p.  What bounds it:
+//    the softmax's exponentials and float work, which the products do not
+//    fully hide (PERF.md, section 6).
+//  * f32 in: 64-row q tiles of four warps, 64-key K and V tiles staged
+//    through shared memory without pipelining; SIMT float FMAs, no TF32,
+//    q * (1/sqrt(D)) rounded in f32 as the reference does.  The build has
+//    -fmad=false, so the dot products are written with explicit __fmaf_rn
+//    (one rounding each).
 //
 // Head dims 32, 64, 128 and 256 are compiled; the entry point refuses others.
 #include <cmath>
+#include <cuda.h>
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -243,33 +268,170 @@ __global__ void __launch_bounds__(THREADS) fa_f32_kernel(Params p) {
   }
 }
 
-// ----------------------------------------------------- bf16 (tensor cores)
+// --------------------------------- bf16 (Hopper: TMA ring, warp-specialised wgmma)
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
+// the producer's arrival, announcing the bytes its TMA loads will bring
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
 }
 
-// c += a b on one m16n8k16 tile: bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// wait until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D tensor map at coordinates (c0 innermost .. c3) into shared
+// memory, completing `bar`'s transaction bytes
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, uint32_t bar, int c0, int c1,
+                                         int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (given in bytes, stored in 16-byte units), swizzle mode (1:
+// 128 bytes, 2: 64 bytes)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, int layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
+         static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 | static_cast<uint64_t>(layout) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of wgmma accumulators
+// across the issue and wait instructions
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// S = A B^T (scale_d = 0) or S += A B^T (1): A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
+        "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
+        "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D += A B: A (64 x 16 bf16) from registers, B from shared memory, MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
+        "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
+        "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (N == 64) wgmma_ss_n64(d, a, b, scale_d);
+  else wgmma_ss_n128(d, a, b, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 32) wgmma_rs_n32(d, a, b);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, b);
+  else wgmma_rs_n128(d, a, b);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -284,147 +446,250 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Warp w owns q rows 16 w .. 16 w + 15.  In the mma fragments lane (g, t) =
-// (lane / 4, lane % 4) holds rows g and g + 8, columns 2 t and 2 t + 1 of
-// each 8-wide n tile.  Shared rows are padded to D + 8 elements, so the
-// eight 16-byte rows of an ldmatrix fall in distinct banks.  Up to D = 128
-// the warp's q fragments stay in registers; at 256 they are re-read from
-// shared memory for every kv tile.
+constexpr int BQ_BF16 = 128;       // q rows a bf16 block owns: 64 per consumer warpgroup
+constexpr int THREADS_BF16 = 384;  // the producer warpgroup, then two consumer warpgroups
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // 128 x 40 + 256 x 232 <= 65,536
+
+// The bf16 tiles of head dim D.  A row of D elements lies in shared memory
+// as D / CH chunks of SW bytes, each chunk a (rows x SW) block in TMA's
+// swizzled layout; a tile is its chunks one after another.
 template <int D>
-__global__ void __launch_bounds__(THREADS) fa_bf16_kernel(Params p) {
-  constexpr int LD = D + 8, KS = D / 16, NS = BK / 8, ND = D / 8;
-  constexpr bool Q_IN_REGS = D <= 128;
+struct Bf16Tile {
+  static constexpr int BK = D <= 128 ? 128 : 64;         // keys a kv tile holds
+  static constexpr int ST = D <= 128 ? 3 : 2;            // stages of the K and V ring
+  static constexpr int SW = 2 * D < 128 ? 2 * D : 128;   // swizzle span: one row's chunk, bytes
+  static constexpr int CH = SW / 2;                       // elements a chunk
+  static constexpr int NCH = D / CH;
+  static constexpr int LAYOUT = SW == 128 ? 1 : 2;        // the descriptors' swizzle mode
+  static constexpr int PV_N = D < 128 ? D : 128;          // columns of O one PV wgmma writes
+  static constexpr int NPV = D / PV_N;
+  static constexpr int Q_BYTES = BQ_BF16 * D * 2, KV_BYTES = BK * D * 2;
+  static constexpr int BARS = 1 + 4 * ST;                 // q; full and empty, K and V, a stage
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * ST * KV_BYTES + 8 * BARS;  // 1024: alignment
+};
+
+// Warpgroup 0 is the producer (its first thread issues every TMA load; the
+// rest exit); warpgroups 1 and 2 own q rows q0 + 64 (wg - 1) .. + 63.  In a
+// consumer warp w, lane (g, t) = (lane / 4, lane % 4) holds rows 16 w + g
+// and 16 w + g + 8 and, of each 8-wide n block of an accumulator, columns
+// 2 t and 2 t + 1 (the wgmma accumulator layout; the same as mma.sync's).
+template <int D>
+__global__ void __launch_bounds__(THREADS_BF16, 1)
+    fa_bf16_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  using T = Bf16Tile<D>;
+  constexpr int BK = T::BK, SW = T::SW, CH = T::CH;
   using bf16 = __nv_bfloat16;
   extern __shared__ uint4 smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // BQ x LD
-  bf16* sK = sQ + BQ * LD;                       // BK x LD
-  bf16* sV = sK + BK * LD;                       // BK x LD
-  const Slice sl(p);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const auto* q = static_cast<const bf16*>(p.q);
-  const auto* k = static_cast<const bf16*>(p.k);
-  const auto* v = static_cast<const bf16*>(p.v);
+  const uint32_t sQ = (smem_addr(smem_raw) + 1023) & ~1023u;  // swizzle atoms on 1024-byte boundaries
+  const uint32_t sK = sQ + T::Q_BYTES, sV = sK + T::ST * T::KV_BYTES;
+  const uint32_t q_full = sV + T::ST * T::KV_BYTES;
+  const auto full_k = [&](int s) { return q_full + 8 * (1 + s); };
+  const auto full_v = [&](int s) { return q_full + 8 * (1 + T::ST + s); };
+  const auto empty_k = [&](int s) { return q_full + 8 * (1 + 2 * T::ST + s); };
+  const auto empty_v = [&](int s) { return q_full + 8 * (1 + 3 * T::ST + s); };
 
-  load_tile<D, LD>(sQ, q + sl.q_row(p, sl.q0, D), p.H, p.S - sl.q0);
-  __syncthreads();
-  // ldmatrix addresses: the A tile (16 rows x 16) of q, the B tiles of k
-  // (two 8-key n tiles x 16 of d) and of v (16 keys x two 8-wide d tiles)
-  const bf16* q_frag = sQ + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-  const bf16* k_frag = sK + ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
-  const bf16* v_frag = sV + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
-  uint32_t qf[Q_IN_REGS ? KS : 1][4];
-  if constexpr (Q_IN_REGS) {
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) ldsm_x4(qf[kk], q_frag + kk * 16);
+  const int bh = blockIdx.x, b = bh / p.H, h = bh - b * p.H, kvh = h / (p.H / p.KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ_BF16;  // heaviest q tiles first
+  int n_tiles = (p.Sk + BK - 1) / BK;
+  if (p.causal) n_tiles = min(n_tiles, (min(q0 + BQ_BF16, p.S) - 1) / BK + 1);
+
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < T::ST; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), 8);  // lane 0 of each consumer warp
+      mbar_init(empty_v(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
 
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m[2] = {MASK, MASK}, l[2] = {0.f, 0.f};
-  const int qp[2] = {sl.q0 + warp * 16 + g, sl.q0 + warp * 16 + g + 8};
-
-  for (int t = 0; t < sl.n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's k and v are consumed
-    load_tile<D, LD>(sK, k + sl.kv_row(p, k0, D), p.KV, p.Sk - k0);
-    load_tile<D, LD>(sV, v + sl.kv_row(p, k0, D), p.KV, p.Sk - k0);
-    __syncthreads();
-
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t a[4];
-      if constexpr (Q_IN_REGS) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
-      } else {
-        ldsm_x4(a, q_frag + kk * 16);
-      }
-#pragma unroll
-      for (int jn = 0; jn < NS / 2; ++jn) {
-        uint32_t b[4];
-        ldsm_x4(b, k_frag + jn * 16 * LD + kk * 16);
-        mma_bf16(s[2 * jn], a, b[0], b[1]);
-        mma_bf16(s[2 * jn + 1], a, b[2], b[3]);
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, T::Q_BYTES);
+      for (int c = 0; c < T::NCH; ++c) tma_load(sQ + c * BQ_BF16 * SW, tm_q, q_full, c * CH, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % T::ST;
+        const uint32_t parity = ((j / T::ST) & 1) ^ 1;  // the release of tile j - T::ST
+        mbar_wait(empty_k(s), parity);
+        mbar_expect_tx(full_k(s), T::KV_BYTES);
+        for (int c = 0; c < T::NCH; ++c)
+          tma_load(sK + s * T::KV_BYTES + c * BK * SW, tm_k, full_k(s), c * CH, kvh, j * BK, b);
+        mbar_wait(empty_v(s), parity);
+        mbar_expect_tx(full_v(s), T::KV_BYTES);
+        for (int c = 0; c < T::NCH; ++c)
+          tma_load(sV + s * T::KV_BYTES + c * BK * SW, tm_v, full_v(s), c * CH, kvh, j * BK, b);
       }
     }
+  } else {
+    // ----------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+    const int cw = wg - 1, ct = threadIdx.x - 128 * wg;
+    const int warp = ct >> 5, lane = ct & 31, g = lane >> 2, t4 = lane & 3;
+    const int wq0 = q0 + 64 * cw;  // this warpgroup's first q row
+    const int qp[2] = {wq0 + 16 * warp + g, wq0 + 16 * warp + g + 8};
+    const uint32_t q_rows = sQ + 64 * cw * SW;
 
-    // online softmax in the log2 domain: x = (q . k) log2(e) / sqrt(D)
-    const bool masked = sl.needs_mask(p, k0);
-    float mx[2] = {MASK, MASK};
+    // Descriptors: K-major Q and K (elements 16 kk .. 16 kk + 15 of every
+    // row), MN-major V (keys 16 kk .. 16 kk + 15, columns PV_N hf ..).  Each
+    // is a base (stage 0) plus an offset in 16-byte units, which only moves
+    // the address field.  The base goes through an empty asm once per tile,
+    // so the compiler derives the per-kk descriptors in the loop instead of
+    // keeping them all live in registers across it.
+    const uint64_t q_base = smem_desc(q_rows, 16, 8 * SW, T::LAYOUT);
+    const uint64_t k_base = smem_desc(sK, 16, 8 * SW, T::LAYOUT);
+    const uint64_t v_base = smem_desc(sV, BK * SW, 8 * SW, T::LAYOUT);
+    constexpr auto kmajor_off = [](int kk, int rows) {
+      return ((16 * kk / CH) * rows * SW + (16 * kk % CH) * 2) >> 4;
+    };
+    constexpr auto v_off = [](int kk, int hf) { return (16 * kk * SW + hf * (T::PV_N / CH) * BK * SW) >> 4; };
+
+    float sc[BK / 2];              // logits, then p, of the current kv tile
+    float o[T::NPV][T::PV_N / 2];  // acc
+    uint32_t pf[BK / 16][4];       // p in bf16, the A fragments of the PV product
+    float m[2] = {MASK, MASK}, l[2] = {0.f, 0.f}, corr[2];
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
+    for (int hf = 0; hf < T::NPV; ++hf)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * p.scale;
-        if (masked) {
-          const int kp = k0 + 8 * j + 2 * t4 + (e & 1);
-          if ((p.causal && kp > qp[e >> 1]) || kp >= p.Sk) x = MASK;
+      for (int i = 0; i < T::PV_N / 2; ++i) o[hf][i] = 0.f;
+
+    const auto issue_qk = [&](int j) {
+      const int s = j % T::ST;
+      uint64_t qd = q_base, kd = k_base + s * (T::KV_BYTES >> 4);
+      asm volatile("" : "+l"(qd), "+l"(kd));
+      mbar_wait(full_k(s), (j / T::ST) & 1);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<BK>(sc, qd + kmajor_off(kk, BQ_BF16), kd + kmajor_off(kk, BK), kk > 0);
+      }
+    };
+    const auto issue_pv = [&](int j) {
+      const int s = j % T::ST;
+      uint64_t vd = v_base + s * (T::KV_BYTES >> 4);
+      asm volatile("" : "+l"(vd));
+      mbar_wait(full_v(s), (j / T::ST) & 1);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int hf = 0; hf < T::NPV; ++hf) wgmma_rs<T::PV_N>(o[hf], pf[kk], vd + v_off(kk, hf));
+    };
+    const auto fence_o = [&]() {
+#pragma unroll
+      for (int hf = 0; hf < T::NPV; ++hf) fence_regs(o[hf]);
+    };
+    const auto release = [&](uint32_t bar) {
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // online softmax of tile j in the log2 domain, x = (q . k) log2(e) / sqrt(D):
+    // sc becomes p, (m, l) move on, corr is the factor for acc
+    const auto softmax = [&](int j) {
+      const int k0 = j * BK;
+      const bool masked = (p.causal && k0 + BK - 1 > wq0) || k0 + BK > p.Sk;
+      float mx[2] = {MASK, MASK};
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * n + e] * p.scale;
+          if (masked) {
+            const int kp = k0 + 8 * n + 2 * t4 + (e & 1);
+            if ((p.causal && kp > qp[e >> 1]) || kp >= p.Sk) x = MASK;
+          }
+          sc[4 * n + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
         }
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // the 4 threads of a row are the 4 lanes of a quad
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        corr[r] = ex2(m[r] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n) {
+          sc[4 * n + 2 * r] = ex2(sc[4 * n + 2 * r] - m_new);
+          sc[4 * n + 2 * r + 1] = ex2(sc[4 * n + 2 * r + 1] - m_new);
+          sum += sc[4 * n + 2 * r] + sc[4 * n + 2 * r + 1];
+        }
+        l[r] = l[r] * corr[r] + sum;  // this thread's share of the row sum
+        m[r] = m_new;
+      }
+    };
+    const auto rescale_o = [&]() {
+#pragma unroll
+      for (int hf = 0; hf < T::NPV; ++hf)
+#pragma unroll
+        for (int i = 0; i < T::PV_N / 2; ++i) o[hf][i] *= corr[(i >> 1) & 1];
+    };
+    // P rounded to bf16: the logits' accumulator layout is the A fragment of
+    // 16 keys = two 8-key n blocks
+    const auto pack_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pf[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+    };
+
+    mbar_wait(q_full, 0);
+    wgmma_fence();
+    issue_qk(0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    release(empty_k(0));
+    softmax(0);
+    pack_p();
+    for (int j = 1; j < n_tiles; ++j) {
+      // S_j and PV_{j-1} in flight together; the softmax of tile j waits for
+      // S_j only and runs while PV_{j-1} is on the tensor cores.  acc takes
+      // tile j - 1's correction while S_j is computed, before PV_{j-1} adds
+      // to it (acc = acc corr + p v, the reference's order; acc is 0 at j = 1)
+      wgmma_fence();
+      issue_qk(j);
+      wgmma_commit();
+      rescale_o();
+      wgmma_fence();
+      issue_pv(j - 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
+      release(empty_k(j % T::ST));
+      softmax(j);
+      wgmma_wait<0>();
+      fence_o();
+      release(empty_v((j - 1) % T::ST));
+      pack_p();
     }
+    rescale_o();
+    wgmma_fence();
+    issue_pv(n_tiles - 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_o();
+
+    auto* out = static_cast<bf16*>(p.o);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      // the 4 threads of a row are the 4 lanes of a quad
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      const float corr = ex2(m[r] - m_new);
-      float sum = 0.f;
+      float lr = l[r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const float den = fmaxf(lr, 1e-30f);
+      if (qp[r] >= p.S) continue;
+      bf16* row = out + ((static_cast<long long>(b) * p.S + qp[r]) * p.H + h) * D;
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        s[j][2 * r] = ex2(s[j][2 * r] - m_new);
-        s[j][2 * r + 1] = ex2(s[j][2 * r + 1] - m_new);
-        sum += s[j][2 * r] + s[j][2 * r + 1];
-      }
-      l[r] = l[r] * corr + sum;  // this thread's share of the row sum
-      m[r] = m_new;
+      for (int hf = 0; hf < T::NPV; ++hf)
 #pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        acc[n][2 * r] *= corr;
-        acc[n][2 * r + 1] *= corr;
-      }
-    }
-
-    // acc += P V, P rounded to bf16: the logits' accumulator layout is the
-    // A fragment of 16 keys = two 8-key n tiles
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]), pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dn = 0; dn < ND / 2; ++dn) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, v_frag + kk * 16 * LD + dn * 16);
-        mma_bf16(acc[2 * dn], a, b[0], b[1]);
-        mma_bf16(acc[2 * dn + 1], a, b[2], b[3]);
-      }
-    }
-  }
-
-  auto* o = static_cast<bf16*>(p.o);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float lr = l[r];
-    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
-    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-    const float den = fmaxf(lr, 1e-30f);
-    if (qp[r] >= p.S) continue;
-    bf16* row = o + sl.q_row(p, qp[r], D);
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<uint32_t*>(row + 8 * n + 2 * t4) =
-          pack_bf16(acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
+        for (int n = 0; n < T::PV_N / 8; ++n) {
+          *reinterpret_cast<uint32_t*>(row + hf * T::PV_N + 8 * n + 2 * t4) =
+              pack_bf16(o[hf][4 * n + 2 * r] / den, o[hf][4 * n + 2 * r + 1] / den);
+        }
     }
   }
 }
@@ -435,34 +700,97 @@ constexpr int smem_f32() {
 }
 
 template <int D>
-constexpr int smem_bf16() {
-  return (BQ + 2 * BK) * (D + 8) * 2;
+int launch_f32(const Params& p, int B, cudaStream_t st) {
+  const dim3 grid(B * p.H, (p.S + BQ - 1) / BQ);
+  const cudaError_t err =
+      cudaFuncSetAttribute(fa_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_f32<D>());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fa_f32_kernel<D><<<grid, THREADS, smem_f32<D>(), st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime's entry-point query,
+// so that the library needs no link to libcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// The tensor map of a (B, seq, heads, D) bf16 tensor as 4-D (D, heads, seq,
+// B): `geom` is the wrapper's {D, heads, seq, B, heads', seq' and batch
+// strides in bytes}.  A box is one chunk of CH elements of `rows` rows of
+// one head; rows past seq are zeros within the batch.
+template <int D>
+bool tensor_map(CUtensorMap* map, const void* base, const long long* geom, int rows) {
+  using T = Bf16Tile<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(geom[0]), static_cast<cuuint64_t>(geom[1]),
+                              static_cast<cuuint64_t>(geom[2]), static_cast<cuuint64_t>(geom[3])};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(geom[4]), static_cast<cuuint64_t>(geom[5]),
+                                 static_cast<cuuint64_t>(geom[6])};
+  const cuuint32_t box[4] = {T::CH, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
-int launch(const Params& p, int B, int dtype, cudaStream_t st) {
-  const dim3 grid(B * p.H, (p.S + BQ - 1) / BQ);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = cudaFuncSetAttribute(fa_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_f32<D>());
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fa_f32_kernel<D><<<grid, THREADS, smem_f32<D>(), st>>>(p);
-  } else {
-    err = cudaFuncSetAttribute(fa_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bf16<D>());
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fa_bf16_kernel<D><<<grid, THREADS, smem_bf16<D>(), st>>>(p);
+int launch_bf16(const Params& p, int B, const long long* q_geom, const long long* kv_geom, cudaStream_t st) {
+  using T = Bf16Tile<D>;
+  const long long q_dims[4] = {D, p.H, p.S, B}, kv_dims[4] = {D, p.KV, p.Sk, B};
+  for (int i = 0; i < 4; ++i) {
+    if (q_geom[i] != q_dims[i] || kv_geom[i] != kv_dims[i]) return static_cast<int>(cudaErrorInvalidValue);
   }
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!tensor_map<D>(&tm_q, p.q, q_geom, BQ_BF16) || !tensor_map<D>(&tm_k, p.k, kv_geom, T::BK) ||
+      !tensor_map<D>(&tm_v, p.v, kv_geom, T::BK)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(B * p.H, (p.S + BQ_BF16 - 1) / BQ_BF16);
+  const cudaError_t err =
+      cudaFuncSetAttribute(fa_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fa_bf16_kernel<D><<<grid, THREADS_BF16, T::SMEM, st>>>(tm_q, tm_k, tm_v, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(const Params& p, int B, int dtype, const long long* q_geom, const long long* kv_geom,
+           cudaStream_t st) {
+  return dtype == 0 ? launch_f32<D>(p, B, st) : launch_bf16<D>(p, B, q_geom, kv_geom, st);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Returns a cudaError_t code.
+// dtype: 0 float32, 1 bfloat16.  For bfloat16, q_geom and kv_geom are the
+// tensor maps' {D, heads, seq, B, heads', seq' and batch strides in bytes}
+// of q (and o) and of k and v; float32 ignores them.  Returns a cudaError_t
+// code.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B,
                                       int S, int Sk, int H, int KV, int D, int causal, int dtype,
-                                      void* stream) {
+                                      const long long* q_geom, const long long* kv_geom, void* stream) {
+  const int rows = dtype == 0 ? BQ : BQ_BF16;  // q rows a block owns
   if (B < 0 || S < 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || (dtype != 0 && dtype != 1) ||
-      static_cast<long long>(B) * H > 0x7fffffff || (S + BQ - 1) / BQ > 65535) {
+      static_cast<long long>(B) * H > 0x7fffffff || (S + rows - 1) / rows > 65535 ||
+      (dtype == 1 && (q_geom == nullptr || kv_geom == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0 || S == 0 || H == 0) return 0;
@@ -472,10 +800,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const Params p{q, k, v, o, S, Sk, H, KV, causal, scale};
   auto* st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch<32>(p, B, dtype, st);
-    case 64: return launch<64>(p, B, dtype, st);
-    case 128: return launch<128>(p, B, dtype, st);
-    case 256: return launch<256>(p, B, dtype, st);
+    case 32: return launch<32>(p, B, dtype, q_geom, kv_geom, st);
+    case 64: return launch<64>(p, B, dtype, q_geom, kv_geom, st);
+    case 128: return launch<128>(p, B, dtype, q_geom, kv_geom, st);
+    case 256: return launch<256>(p, B, dtype, q_geom, kv_geom, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

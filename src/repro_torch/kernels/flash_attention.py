@@ -10,7 +10,8 @@ type, is acc / max(l, 1e-30) of the running (m, l, acc) in float32.
 
 On CUDA tensors `flash_attention` launches `csrc/flash_attention.cu`
 (float32 or bfloat16, D in `HEAD_DIMS`); on CPU tensors it runs
-`flash_attention_plain`.
+`flash_attention_plain`.  The bfloat16 kernel reads q, k and v by TMA
+through 4-D tensor maps whose geometry `tma_geometry` computes here.
 """
 from __future__ import annotations
 
@@ -93,7 +94,8 @@ def flash_attention_plain(q, k, v, *, causal=True, bq=256, bk=256, p_dtype=None)
 def _check_card_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise unless the CUDA kernel takes these inputs: one type of
     `CARD_DTYPES`, a head dim of `HEAD_DIMS`, contiguous (B, S, H, D) whose
-    data starts on a 16-byte boundary (the kernel's vector loads)."""
+    data starts on a 16-byte boundary (the f32 kernel's vector loads and the
+    bf16 kernel's TMA base addresses)."""
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"q, k, v differ in type: {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dtype not in CARD_DTYPES:
@@ -105,12 +107,32 @@ def _check_card_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Non
             raise ValueError(f"{name}: expected a contiguous tensor")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: expected data aligned to 16 bytes")
+        if t.dtype == torch.bfloat16:
+            tma_geometry(t)
+
+
+def tma_geometry(t: torch.Tensor) -> tuple[int, ...]:
+    """The TMA tensor map of a contiguous (B, seq, heads, D) tensor, as the
+    bfloat16 kernel encodes it: the 4-D view (D, heads, seq, B), innermost
+    first, then the byte strides of heads, seq and B.  Batch stays its own
+    dimension, so a box that runs past `seq` reads zeros and never the next
+    batch's rows.  Raises where TMA cannot take the tensor: a stride that is
+    not a multiple of 16 bytes or one of 2^40 bytes or more, a dimension of
+    2^32 or more."""
+    if t.ndim != 4 or not t.is_contiguous():
+        raise ValueError(f"expected a contiguous (B, seq, heads, D) tensor, got {tuple(t.shape)}")
+    b, s, h, d = t.shape
+    e = t.element_size()
+    strides = (d * e, h * d * e, s * h * d * e)
+    if any(x % 16 or x >= 2**40 for x in strides) or max(t.shape) >= 2**32:
+        raise ValueError(f"TMA cannot map a {tuple(t.shape)} {t.dtype} tensor: byte strides {strides}")
+    return (d, h, s, b, *strides)
 
 
 @functools.cache
 def _entry():
     fn = build.library("flash_attention").flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     return fn
 
@@ -119,9 +141,12 @@ def _launch(q, k, v, *, causal):
     b, s, h, d = q.shape
     _, sk, kv, _ = k.shape
     out = torch.empty_like(q)
+    geoms = [None, None]
+    if q.dtype == torch.bfloat16:  # v has k's geometry
+        geoms = [(ctypes.c_longlong * 7)(*tma_geometry(t)) for t in (q, k)]
     status = _entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, s, sk, h, kv, d, int(causal), CARD_DTYPES[q.dtype],
+        b, s, sk, h, kv, d, int(causal), CARD_DTYPES[q.dtype], *geoms,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check_launch("flash_attention", status)

@@ -202,3 +202,57 @@ def test_plain_rounds_p_only_when_asked(rng):
     bf16, e4m3 = (float((tfa.flash_attention_plain(q, k, v, bk=64, p_dtype=t) - base).abs().max())
                   for t in (torch.bfloat16, torch.float8_e4m3fn))
     assert 0 < bf16 < e4m3
+
+
+@pytest.mark.parametrize("d", tfa.HEAD_DIMS)
+def test_tma_geometry_keeps_batches_apart(d):
+    """The bf16 kernel's tensor maps are 4-D (D, heads, seq, B): a box that
+    runs past a ragged seq reads zeros, never the next batch's rows (a 3-D
+    map over B * seq rows would)."""
+    q = torch.zeros(2, 200, 8, d, dtype=torch.bfloat16)
+    k = torch.zeros(2, 333, 2, d, dtype=torch.bfloat16)
+    assert tfa.tma_geometry(q) == (d, 8, 200, 2, 2 * d, 2 * 8 * d, 2 * 200 * 8 * d)
+    assert tfa.tma_geometry(k) == (d, 2, 333, 2, 2 * d, 2 * 2 * d, 2 * 333 * 2 * d)
+    # the byte strides are those of the tensor, each a multiple of 16 (TMA's rule)
+    for t in (q, k):
+        geom = tfa.tma_geometry(t)
+        assert list(geom[4:]) == [s * t.element_size() for s in reversed(t.stride()[:3])]
+        assert all(s % 16 == 0 for s in geom[4:])
+
+
+def test_tma_geometry_refuses_what_tma_cannot_map():
+    with pytest.raises(ValueError, match="TMA cannot map"):
+        tfa.tma_geometry(torch.zeros(1, 8, 2, 4, dtype=torch.bfloat16))  # 8-byte rows
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.tma_geometry(torch.zeros(1, 2, 8, 32, dtype=torch.bfloat16).transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.tma_geometry(torch.zeros(8, 32, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("sk", [None, 200], ids=["sk=s", "sk200"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_launch_passes_the_tensor_maps(rng, monkeypatch, dtype, sk):
+    """The C entry point gets the shapes, and for bf16 the geometry of q's
+    and k's tensor maps (v shares k's); for f32 null pointers."""
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(tfa, "_entry", lambda: entry)
+    monkeypatch.setattr(tfa.torch.cuda, "current_stream", lambda device=None: type("S", (), {"cuda_stream": 7}))
+    monkeypatch.setattr(tfa.flash_attention, "launches", 0)
+    (q, k, v), _ = _inputs(rng, 2, 128, 8, 2, 128, dtype, sk)
+    out = tfa._launch(q, k, v, causal=True)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    (args,) = calls
+    assert args[4:12] == (2, 128, k.shape[1], 8, 2, 128, 1, tfa.CARD_DTYPES[q.dtype])
+    q_geom, kv_geom, stream = args[12:]
+    assert stream == 7
+    if dtype == "bf16":
+        assert tuple(q_geom) == tfa.tma_geometry(q)
+        assert tuple(kv_geom) == tfa.tma_geometry(k) == tfa.tma_geometry(v)
+    else:
+        assert q_geom is None and kv_geom is None
+    assert tfa.flash_attention.launches == 1

@@ -4,6 +4,7 @@ on the card: what its limit `ATTN_BF16_ROW_TOL` was set from.
 
 For each seed and each bf16 shape that `chip_smoke.py` checks (the CPU
 tests' sweep, causal and full, the ragged s = 200, Sk = 256 != S = 128,
+the two batches of two with a ragged tail (`chip_smoke.ATTN_BATCH_EDGES`),
 every compiled head dim with blocks of 64, and one causal 32k prefill at
 Qwen2.5-32B's widths), it prints `chip_smoke.attention_row_err` against
 `flash_attention_plain` for
@@ -46,6 +47,7 @@ def main() -> int:
     cases = [(shape, None, causal, {}) for causal in (True, False) for shape in cs.ATTN_SWEEP]
     cases += [((1, 200, 4, 2, 32), None, causal, {}) for causal in (True, False)]
     cases += [((1, 128, 4, 2, 64), 256, causal, {}) for causal in (True, False)]
+    cases += [(shape, sk, causal, {}) for causal in (True, False) for shape, sk in cs.ATTN_BATCH_EDGES]
     cases += [((1, cs.ATTN_HEAD_DIM_S, 8, 2, d), None, True, {"bq": 64, "bk": 64}) for d in fa.HEAD_DIMS]
     cases += [(cs.ATTN_FULL, None, True, {})]
     rows = []

@@ -76,9 +76,10 @@ def main() -> int:
             ar, ai, br, bi, moduli=cplx.moduli), args.reps),
     }
     if "flash_attention" in kernels.WRAPPERS:
-        b, s, h, kv, d = 1, 32768, 40, 8, 128
+        # its own names: the GEMM calls above close over `a` and `b`
+        bsz, seq, heads, kv_heads, hd = 1, 32768, 40, 8, 128
         q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev).to(torch.bfloat16)
-                   for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+                   for shape in ((bsz, seq, heads, hd), (bsz, seq, kv_heads, hd), (bsz, seq, kv_heads, hd)))
         calls["flash_attention"] = (lambda: kernels.flash_attention.flash_attention(q, k, v), args.reps)
     ms = {}
     for name, (fn, reps) in calls.items():
