@@ -42,10 +42,16 @@ failure is caught.
    Every compiled tile of the six GEMM kernels (`kernels.common.
    COMPILED_TILES`) against the plain version at the ragged shape: the
    product kernels with and without carry, the megakernels with raw and
-   prepared B, chunk_limit 256 and 2^17; and at 4096^3 each non-default
-   tile against the default tile's output, bitwise, timed (CUDA events).
+   prepared B, f32 and double-single output, chunk_limit 256 and 2^17
+   (the complex megakernel at N = 7, 14 and 21, its NMAX 8, 16 and 24
+   instantiations, each also against the 4-launch composition); and at
+   4096^3 each non-default tile against the default tile's output,
+   bitwise, timed (CUDA events).  The complex megakernel's thread-block
+   cluster and the most clusters the card holds at once, per tile and N.
    The launch-timing copy kernel (`launch_copy`) against `x.clone()` on an
-   (8, 128) f32 tile, bitwise; timed by CUDA events with the stream held
+   (8, 128) f32 tile and at COPY_SIZES elements, each also on a view
+   4 bytes into its storage (the kernel's misaligned path), bitwise;
+   timed by CUDA events with the stream held
    busy while the host enqueues (the device's time per launch), by CUDA
    events paced by the host, by host wall time through its wrapper (what
    the calibration measures), and `x.clone()` beside it (the library call
@@ -165,6 +171,8 @@ PATH_OF["launch_copy"] = "tune"
 PATH_OF["flash_attention"] = "attention"
 
 COPY_SHAPE = (8, 128)      # the calibration's launch-timing tile
+COPY_SIZES = (1, 1023, 4097)  # copies off the kernel's 4-value groups
+FUSED_COMPLEX_N = (7, 14, 21)  # the complex megakernel's NMAX 8, 16, 24 instantiations
 RAGGED = (257, 1000, 129)  # (m, k, n) off every tile multiple
 MAIN = 4096                # the main path's m = n = k
 BIG = 8192                 # the largest zgemm of the main path
@@ -366,9 +374,28 @@ class KernelChecks:
                                      lambda: plain(*ops, moduli=mods, carry=c))
                     print(f"  {name} tile {tile_label(tile)} {m}x{k}x{n} N={n_mod}: "
                           f"== plain with and without carry, bitwise", flush=True)
-        for dtype, n_mod in ((np.float32, 8), (np.complex64, 14)):
-            for chunk_limit in (RAGGED_CHUNK, 1 << 17):
-                self.megakernels(RAGGED, dtype, n_mod, chunk_limit=chunk_limit, timed=False, all_tiles=True)
+        for dtype, n_mods in ((np.float32, (8,)), (np.complex64, FUSED_COMPLEX_N)):
+            for n_mod in n_mods:
+                for chunk_limit in (RAGGED_CHUNK, 1 << 17):
+                    self.megakernels(RAGGED, dtype, n_mod, chunk_limit=chunk_limit, timed=False,
+                                     all_tiles=True)
+
+    def clusters(self):
+        """The complex megakernel's launch: its thread-block cluster and the
+        most such clusters the card holds at once, per compiled tile and N."""
+        from repro_torch.kernels.karatsuba_fused import fused_cluster_info
+
+        rec = self.record["fused_karatsuba"]["clusters"] = {}
+        for tile in self.tiles_of["fused_karatsuba"]:
+            for n_mod in FUSED_COMPLEX_N:
+                info = fused_cluster_info(n_mod, tile)
+                rec[f"{tile_label(tile)} N={n_mod}"] = info
+                print(f"  fused_karatsuba tile {tile_label(tile)} N={n_mod}: cluster "
+                      f"{info['cluster'][0]}x{info['cluster'][1]} (m x n), at most "
+                      f"{info['max_active_clusters']} clusters at once, {info['smem_bytes']} B of "
+                      f"shared memory a block, {info['stages']} staging buffer(s)", flush=True)
+                if info["max_active_clusters"] < 1:
+                    raise AssertionError(f"fused_karatsuba tile {tile} N={n_mod}: no cluster fits")
 
     def launch_copy(self):
         """The launch-timing copy kernel against x.clone() on the
@@ -376,6 +403,12 @@ class KernelChecks:
         through the wrapper, and x.clone() beside it."""
         from repro_torch.kernels import launch_copy as lc
 
+        for size in COPY_SIZES:
+            buf = torch.from_numpy(self.rng.standard_normal(size + 1).astype(np.float32)).to(self.dev)
+            for view in (buf[:size], buf[1:]):
+                self.compare("launch_copy", lambda: lc.launch_copy(view), lambda: view.clone())
+            print(f"  launch_copy {size} f32, aligned and 4 bytes into its storage: == x.clone(), "
+                  "bitwise", flush=True)
         x = torch.from_numpy(self.rng.standard_normal(COPY_SHAPE).astype(np.float32)).to(self.dev)
         nbytes = 2 * x.numel() * 4
         self.compare("launch_copy", lambda: lc.launch_copy(x), lambda: lc.launch_copy_plain(x),
@@ -1196,6 +1229,7 @@ def main() -> int:
     checks.chain((MAIN, MAIN, MAIN), np.float32, 8, timed=True)
     checks.chain((MAIN, MAIN, MAIN), np.complex128, 14, timed=True)
     checks.tiles()
+    checks.clusters()
     checks.megakernels((MAIN, MAIN, MAIN), np.float32, 8, chunk_limit=1 << 17, timed=True)
     checks.megakernels((MAIN, MAIN, MAIN), np.complex128, 14, chunk_limit=1 << 17, timed=True)
     checks.fp8_worst_case()
@@ -1254,6 +1288,7 @@ def main() -> int:
             "int_mm_ms": r.get("int_mm_ms"),
             "scaled_mm_ms": r.get("scaled_mm_ms"),
             "kernel_path_ms": r.get("kernel_path_ms"),
+            "clusters": r.get("clusters"),
             "f32": r.get("f32"),
             "max_abs_err_by_type": r.get("max_abs_err_by_type"),
             "row_err": r.get("row_err"),

@@ -32,7 +32,9 @@ SOURCES = (
     "fused_mod_gemm", "fused_karatsuba", "fp8_mod_gemm", "fp8_karatsuba", "launch_copy",
     "flash_attention",
 )
-HEADERS = ("common.cuh", "gemm_tiles.cuh", "fp8_tiles.cuh", "cast_tile.cuh", "garner_tile.cuh")
+HEADERS = (
+    "common.cuh", "gemm_tiles.cuh", "fp8_tiles.cuh", "cast_tile.cuh", "garner_tile.cuh", "residue_fma.cuh",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

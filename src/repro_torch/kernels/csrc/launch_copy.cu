@@ -1,4 +1,4 @@
-// Launch-timing copy: one block copies a small f32 tile, out = x.
+// Launch-timing copy: out = x for a small f32 tile.
 //
 // Replaces the Pallas kernel `_copy` of src/repro/tune/calibrate.py:138
 // (inside `_measure_gemm_launch_s`, :130), whose wall time is the
@@ -10,18 +10,44 @@
 // (ctypes, the C entry point, the CUDA launch and its error check) of the
 // GEMM kernels, which share that path.
 //
-// Design: one block of 256 threads, each copying every 256th element.
+// Design: one vector a thread.  Thread g copies the values [4g, 4g + 4): when
+// both pointers are 16-byte aligned as one float4 load and one store, and
+// the grid covers the n / 4 vectors in one round (one block of 256 threads
+// for the (8, 128) tile).  The scalar tail of fewer than four values, and
+// every group when a pointer is not aligned, is copied by scalar loads,
+// all issued before any store, so a thread waits on memory once.
 #include "common.cuh"
 
-__global__ void __launch_bounds__(256) launch_copy_kernel(const float* __restrict__ x,
-                                                          float* __restrict__ out, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = x[i];
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads) launch_copy_kernel(const float* __restrict__ x,
+                                                               float* __restrict__ out, int n,
+                                                               int vec) {
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  const int i = 4 * g;
+  if (i >= n) return;
+  if (vec && i + 4 <= n) {
+    reinterpret_cast<float4*>(out)[g] = reinterpret_cast<const float4*>(x)[g];
+    return;
+  }
+  float v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (i + j < n) v[j] = x[i + j];
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (i + j < n) out[i + j] = v[j];
+  }
 }
 
 extern "C" int launch_copy_launch(const void* x, void* out, int n, void* stream) {
   if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  launch_copy_kernel<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), n);
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int groups = (n + 3) / 4;
+  launch_copy_kernel<<<(groups + kThreads - 1) / kThreads, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(x),
+                                                            static_cast<float*>(out), n, vec);
   return static_cast<int>(cudaGetLastError());
 }

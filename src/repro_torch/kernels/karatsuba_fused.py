@@ -15,7 +15,8 @@ On CUDA tensors `karatsuba_mod_gemm_batched` launches
 AR/AI (and BR/BI, unless pre-cast) as prologue, the D/E/F triple for every
 plane with the K-chunk reduction inside, the CR/CI combine and two Garner
 reconstructions as epilogue.  On CUDA tensors it launches
-`csrc/fused_karatsuba.cu`; on CPU tensors it runs
+`csrc/fused_karatsuba.cu` (in 2 x 4 thread-block clusters that share the
+casts; `fused_cluster_info` reports the launch); on CPU tensors it runs
 `fused_karatsuba_mod_gemm_plain`.
 """
 from __future__ import annotations
@@ -216,6 +217,22 @@ def _fused_launch(ar, ai, br, bi, e_mu, e_nu, ctx, *, n_limbs, out_dd, b_res, ch
     build.check_launch("fused_karatsuba", status)
     fused_karatsuba_mod_gemm.launches += 1
     return cr, ci
+
+
+def fused_cluster_info(n_mod: int, tile: tuple[int, int, int] | None = None) -> dict:
+    """How the card runs the complex megakernel at `n_mod` moduli with
+    `tile`: the thread-block cluster it launches in (`cluster`, (CM, CN)
+    blocks along m and n), the most such clusters the card holds at once
+    (`cudaOccupancyMaxActiveClusters`), the shared memory of a block and
+    its number of staging buffers.  Needs the card."""
+    tile = check_tile("fused", "complex", tile)
+    fn = build.library("fused_karatsuba").fused_karatsuba_cluster_info
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 5)()
+    build.check_launch("fused_karatsuba", fn(*tile, int(n_mod), info))
+    return {"cluster": (info[0], info[1]), "max_active_clusters": info[2],
+            "smem_bytes": info[3], "stages": info[4]}
 
 
 def fused_karatsuba_mod_gemm(

@@ -1,0 +1,122 @@
+#!/usr/bin/env python3
+"""Count the SASS instructions of one residue cast, the int32 `%` one
+and the division-free one, as `nvcc` compiles them for sm_90a.
+
+It compiles a probe source with three kernels, each casting one f32 value
+per thread with the port's build flags (`kernels/build.NVCC_FLAGS`):
+
+- `probe_base`: the load, the index and the byte store alone;
+- `probe_div`: `cast_residue` of `csrc/cast_tile.cuh` (an int32 `%` per
+  limb), as `residue_cast.cu` and `fused_mod_gemm.cu` run it;
+- `probe_fma`: `residue_fma` of `csrc/residue_fma.cuh` and its byte, as
+  `fused_karatsuba.cu` runs it.
+
+Both casts read the plane's constants with a run-time plane index and
+take the number of limbs at run time, as the kernels do, so the code of
+every limb slot up to REPRO_MAX_LIMBS = 5 is compiled and the slots past
+the run-time count are branched over: the counts are of the code as the
+kernels compile it, not of the instructions one cast at 3 limbs (N = 14)
+executes.  `cuobjdump -sass` lists each kernel; the script counts its
+instructions by class, less `probe_base`'s, and prints one JSON line.
+Needs the CUDA toolkit (`nvcc`, `cuobjdump`):
+
+    python3 tools/cast_sass.py
+"""
+from __future__ import annotations
+
+import collections
+import json
+import pathlib
+import re
+import subprocess
+import sys
+import tempfile
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+PROBE = r"""
+#include "cast_tile.cuh"
+#include "residue_fma.cuh"
+
+extern "C" __global__ void probe_base(const float* x, int8_t* out, float scale, int l, CastParams cp) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  out[i] = static_cast<int8_t>(__float_as_uint(x[i] * scale));
+}
+
+extern "C" __global__ void probe_div(const float* x, int8_t* out, float scale, int l, CastParams cp) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  out[i] = cast_residue(x[i], scale, l, cp);
+}
+
+extern "C" __global__ void probe_fma(const float* x, int8_t* out, float scale, int l, CastParams cp) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const PlaneCast pc = plane_cast(cp, l);
+  out[i] = static_cast<int8_t>(residue_byte(residue_fma(x[i], scale, cp.n_limbs, pc)));
+}
+"""
+
+# SASS opcodes by the unit that issues them
+CLASSES = {
+    "conversion": ("F2I", "I2F", "F2F", "FRND", "I2I", "F2FP"),
+    "mufu": ("MUFU",),
+    "integer": ("IMAD", "IADD3", "IMUL", "ISETP", "LOP3", "SHF", "IABS", "IMNMX", "SEL", "LEA",
+                "PRMT", "SGXT", "IADD", "VIADD", "BMSK", "POPC", "FLO", "I2IP"),
+    "float": ("FFMA", "FADD", "FMUL", "FSETP", "FSEL", "FMNMX", "FCHK", "FSWZADD"),
+    "constant load": ("LDC", "ULDC"),
+    "memory": ("LDG", "STG", "LDS", "STS", "LD", "ST"),
+    "control": ("BRA", "EXIT", "BSSY", "BSYNC", "CALL", "RET", "WARPSYNC", "YIELD", "BAR"),
+}
+
+
+def opcode_class(op: str) -> str:
+    for name, ops in CLASSES.items():
+        if op in ops:
+            return name
+    return "other"
+
+
+def count_sass(text: str) -> dict[str, collections.Counter]:
+    """{kernel: Counter(opcode)} from `cuobjdump -sass`, NOPs left out."""
+    out, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = out.setdefault(m.group(1), collections.Counter())
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m and current is not None and m.group(1) != "NOP":
+            current[m.group(1)] += 1
+    return out
+
+
+def main() -> int:
+    from repro_torch.kernels import build
+
+    nvcc = build.nvcc_path()
+    cuobjdump = str(pathlib.Path(nvcc).with_name("cuobjdump"))
+    flags = [f for f in build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+    with tempfile.TemporaryDirectory() as tmp:
+        src, cubin = pathlib.Path(tmp) / "probe.cu", pathlib.Path(tmp) / "probe.cubin"
+        src.write_text(PROBE)
+        subprocess.run([nvcc, *flags, "-cubin", "-I", str(build.CSRC), "-o", str(cubin), str(src)],
+                       check=True)
+        sass = subprocess.run([cuobjdump, "-sass", str(cubin)], capture_output=True, text=True,
+                              check=True).stdout
+    counts = count_sass(sass)
+    base = counts["probe_base"]
+    record = {}
+    for name in ("probe_div", "probe_fma"):
+        diff = collections.Counter(counts[name])
+        diff.subtract(base)
+        by_class = collections.Counter()
+        for op, c in diff.items():
+            by_class[opcode_class(op)] += c
+        record[name] = {"total": sum(diff.values()), "by_class": dict(sorted(by_class.items())),
+                        "by_opcode": {op: c for op, c in sorted(diff.items()) if c}}
+    print(json.dumps({"sass_less_probe_base": record, "nvcc_flags": flags}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the six GEMM kernels and the attention kernel of one checkout's
-`repro_torch` on the card.
+"""Time the six GEMM kernels, the attention kernel and the launch-timing
+copy kernel of one checkout's `repro_torch` on the card.
 
 Each GEMM kernel runs at the main path's shape (m = n = k = 4096; N = 8
 moduli real, 14 complex) through its wrapper's plain call, which launches
@@ -8,7 +8,11 @@ the kernel's default tile; the attention kernel runs one causal 32k prefill
 at Qwen2.5-32B's widths (B = 1, S = 32768, H = 40, KV = 8, D = 128, bf16)
 through `flash_attention`, where the checkout has it.  Each is timed with
 CUDA events (mean of `--reps` launches after a warm-up; one launch for the
-two megakernels).  The calls take no tile argument, so the script also
+two megakernels).  The copy kernel (`launch_copy`, on the calibration's
+(8, 128) f32 tile) and `x.clone()` beside it are timed as the device sees
+them: 1000 launches each, enqueued while the stream is held busy, so the
+host's launch path does not pace them (`launch_copy` and `x.clone` in the
+output).  The calls take no tile argument, so the script also
 times a checkout from before the kernels took one.  To compare two
 checkouts, run it on both on the same card within one job, in turns (a, b,
 b, a):
@@ -16,12 +20,15 @@ b, a):
     python3 tools/kernel_times.py --src PATH/TO/CHECKOUT/src
 
 It builds that checkout's kernels first (into its `build/`) and prints one
-JSON line: {"src", "card", "ms": {kernel: ms}}.
+JSON line: {"src", "card", "ms": {kernel: ms}}.  `--only NAME [NAME ...]`
+builds and times only those kernels (a tree that differs from another in
+one source).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import pathlib
 import subprocess
 import sys
 
@@ -32,8 +39,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True, help="the `src` directory of the checkout to time")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--only", nargs="+", metavar="NAME", help="build and time only these kernels")
     args = ap.parse_args()
     sys.path.insert(0, args.src)
+    sys.path.insert(1, str(pathlib.Path(__file__).resolve().parents[1]))  # chip_smoke
     import torch
 
     if not torch.cuda.is_available():
@@ -44,7 +53,11 @@ def main() -> int:
     import repro_torch.kernels as kernels
     from repro_torch.kernels import build, fp8_mod_gemm, int8_mod_gemm, karatsuba_fused
 
-    build.build_all()
+    if args.only:
+        for name in args.only:
+            build.library(name)
+    else:
+        build.build_all()
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     size = 4096
@@ -81,7 +94,16 @@ def main() -> int:
         q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev).to(torch.bfloat16)
                    for shape in ((bsz, seq, heads, hd), (bsz, seq, kv_heads, hd), (bsz, seq, kv_heads, hd)))
         calls["flash_attention"] = (lambda: kernels.flash_attention.flash_attention(q, k, v), args.reps)
+    if args.only:
+        calls = {name: call for name, call in calls.items() if name in args.only}
     ms = {}
+    if "launch_copy" in kernels.WRAPPERS and (not args.only or "launch_copy" in args.only):
+        from chip_smoke import device_ms
+        from repro_torch.kernels.launch_copy import launch_copy
+
+        x = torch.from_numpy(rng.standard_normal((8, 128)).astype(np.float32)).to(dev)
+        for name, fn in (("launch_copy", lambda: launch_copy(x)), ("x.clone", x.clone)):
+            ms[name] = device_ms(fn, 1000)
     for name, (fn, reps) in calls.items():
         fn()
         torch.cuda.synchronize()
