@@ -16,8 +16,9 @@ failure is caught.
    every compiled tile of the six GEMM kernels and every compiled (type,
    head dim) of the attention kernel, with the path it takes (bf16: the
    TMA ring and warp-specialised wgmma kernel; f32: the SIMT kernel).
-   Fails if ptxas serialized any wgmma instructions (its C7512 warning)
-   or if a bf16 attention kernel spills.
+   Fails if ptxas serialized any wgmma instructions (its C7512 warning),
+   if a bf16 attention kernel spills, or if the e4m3 Karatsuba kernel
+   spills at its default tile.
 2. Hold each kernel against its plain PyTorch version on the card, bitwise
    (`torch.equal`) except attention: the chain scale -> cast (rows and columns, S = 1 or 2)
    -> product (with and without carry) -> Garner (f32 and double-single) at
@@ -39,6 +40,14 @@ failure is caught.
    worst case m = n = 128, k = FP8_K_CHUNK_LIMIT = 2^16: planes of -120
    (the largest digits in every product), of alternating signs, and
    random; for the complex kernel AR = -120, AI = 0.
+   The e4m3 Karatsuba kernel on both of its load paths, every tile, with
+   and without carry, against its plain version and the int8 Karatsuba
+   kernel: RAGGED at N = 7, 14 and 21 (k and n off multiples of 16: its
+   split threads load from global memory) and ALIGNED_RAGGED (257, 1024,
+   144) at N = 14 (TMA, ragged edges); the wrapper's `tma_launches` beside
+   `launches` must show RAGGED took no TMA launch and ALIGNED_RAGGED only
+   TMA launches.  Its thread-block cluster and the most clusters the card
+   holds at once, per tile and N, as for the complex megakernel.
    Every compiled tile of the six GEMM kernels (`kernels.common.
    COMPILED_TILES`) against the plain version at the ragged shape: the
    product kernels with and without carry, the megakernels with raw and
@@ -174,6 +183,7 @@ COPY_SHAPE = (8, 128)      # the calibration's launch-timing tile
 COPY_SIZES = (1, 1023, 4097)  # copies off the kernel's 4-value groups
 FUSED_COMPLEX_N = (7, 14, 21)  # the complex megakernel's NMAX 8, 16, 24 instantiations
 RAGGED = (257, 1000, 129)  # (m, k, n) off every tile multiple
+ALIGNED_RAGGED = (257, 1024, 144)  # ragged edges, but k and n multiples of 16: strides TMA can map
 MAIN = 4096                # the main path's m = n = k
 BIG = 8192                 # the largest zgemm of the main path
 SMALL = 512                # the card-vs-cpu end-to-end parity size
@@ -247,7 +257,10 @@ TILE_LABEL = (re.compile(r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E"), lambda g: "t
 # the path each attention input type takes, at every head dim
 ATTN_PATHS = {"bf16": "TMA ring, warp-specialised wgmma", "f32": "SIMT, 64-row tiles"}
 PTXAS_LABELS = {"flash_attention": (re.compile(r"fa_(f32|bf16)_kernelILi(\d+)E"),
-                                    lambda g: f"{g[0]} D={g[1]} ({ATTN_PATHS[g[0]]})")}
+                                    lambda g: f"{g[0]} D={g[1]} ({ATTN_PATHS[g[0]]})"),
+                # fp8_karatsuba_kernel<BK, stages, TMA>: the tile 64 x 64 x BK
+                "fp8_karatsuba": (re.compile(r"fp8_karatsuba_kernelILi(\d+)ELi\d+ELb\d+E"),
+                                  lambda g: "tile " + tile_label((64, 64, g[0])))}
 WGMMA_SERIALIZED = "wgmma.mma_async instructions are serialized"  # ptxas's warning (C7512)
 
 
@@ -396,6 +409,59 @@ class KernelChecks:
                       f"shared memory a block, {info['stages']} staging buffer(s)", flush=True)
                 if info["max_active_clusters"] < 1:
                     raise AssertionError(f"fused_karatsuba tile {tile} N={n_mod}: no cluster fits")
+        from repro_torch.kernels.fp8_mod_gemm import fp8_cluster_info
+
+        rec = self.record["fp8_karatsuba"]["clusters"] = {}
+        for tile in self.tiles_of["fp8_karatsuba"]:
+            for n_mod in FUSED_COMPLEX_N:
+                info = fp8_cluster_info(n_mod, tile)
+                rec[f"{tile_label(tile)} N={n_mod}"] = info
+                print(f"  fp8_karatsuba tile {tile_label(tile)} N={n_mod}: cluster "
+                      f"{info['cluster'][0]}x{info['cluster'][1]} (m x n), at most "
+                      f"{info['max_active_clusters']} clusters at once, {info['smem_bytes']} B of "
+                      f"shared memory a block, {info['stages']} digit stage(s), "
+                      f"{info['raw_stages']} raw stage(s)", flush=True)
+                if info["max_active_clusters"] < 1:
+                    raise AssertionError(f"fp8_karatsuba tile {tile} N={n_mod}: no cluster fits")
+
+    def fp8_paths(self):
+        """The e4m3 Karatsuba kernel on both of its load paths, every tile,
+        bitwise against its plain version and the int8 Karatsuba kernel,
+        with and without carry: RAGGED (k and n off multiples of 16: the
+        split threads load from global memory) at N = 7, 14 and 21, and
+        ALIGNED_RAGGED (TMA, ragged edges) at N = 14.  The wrapper's counts
+        show which path each launch took."""
+        from repro_torch.core.moduli import make_crt_context
+
+        _, _, kf, _ = self.mods
+        f8 = self.f8
+        wrapper = f8.fp8_karatsuba_mod_gemm_batched
+        rec = self.record["fp8_karatsuba"]["paths"] = {}
+        for shape, n_mods, tma in ((RAGGED, FUSED_COMPLEX_N, False), (ALIGNED_RAGGED, (14,), True)):
+            m, k, n = shape
+            for n_mod in n_mods:
+                mods = make_crt_context(n_mod).moduli
+                ops = [self.residues(mods, s) for s in ((m, k), (m, k), (k, n), (k, n))]
+                carry = (self.residues(mods, (m, n)), self.residues(mods, (m, n)))
+                int8 = {None: kf.karatsuba_mod_gemm_batched(*ops, moduli=mods),
+                        "carry": kf.karatsuba_mod_gemm_batched(*ops, moduli=mods, carry=carry)}
+                for tile in self.tiles_of["fp8_karatsuba"]:
+                    before = (wrapper.launches, wrapper.tma_launches)
+                    for c in (None, carry):
+                        got = self.compare(
+                            "fp8_karatsuba", lambda: wrapper(*ops, moduli=mods, carry=c, tile=tile),
+                            lambda: f8.fp8_karatsuba_mod_gemm_plain(*ops, moduli=mods, carry=c))
+                        self.same_as_int8("fp8_karatsuba", got, int8[None if c is None else "carry"],
+                                          f"{m}x{k}x{n} N={n_mod} tile {tile_label(tile)}")
+                    launched = wrapper.launches - before[0]
+                    by_tma = wrapper.tma_launches - before[1]
+                    label = f"{m}x{k}x{n} N={n_mod} tile {tile_label(tile)}"
+                    rec[label] = {"launches": launched, "tma_launches": by_tma}
+                    print(f"  fp8_karatsuba {label}: == plain == int8 with and without carry, bitwise; "
+                          f"{launched} launches, {by_tma} of them by TMA", flush=True)
+                    if by_tma != (launched if tma else 0):
+                        raise AssertionError(f"fp8_karatsuba {label}: {by_tma} of {launched} launches took "
+                                             f"the TMA path, expected {'all' if tma else 'none'}")
 
     def launch_copy(self):
         """The launch-timing copy kernel against x.clone() on the
@@ -1194,6 +1260,7 @@ def main() -> int:
     import repro_torch.kernels as kernels
     from repro_torch import GemmPolicy, linalg
     from repro_torch.kernels import build
+    from repro_torch.kernels.common import COMPILED_TILES
 
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     print(f"card: {card_line()}", flush=True)
@@ -1209,6 +1276,10 @@ def main() -> int:
     for label, (regs, spill, count) in ptxas["flash_attention"].items():
         if label.startswith("bf16") and spill:
             raise AssertionError(f"flash_attention {label}: {spill} bytes of spill stores")
+    default_fp8 = "tile " + tile_label(COMPILED_TILES["fp8", "complex"][0])
+    if ptxas["fp8_karatsuba"][default_fp8][1]:
+        raise AssertionError(f"fp8_karatsuba {default_fp8}: {ptxas['fp8_karatsuba'][default_fp8][1]} bytes "
+                             "of spill stores")
     for name, log in logs.items():
         if name in ptxas:
             for label, (regs, spill, count) in ptxas[name].items():
@@ -1229,6 +1300,7 @@ def main() -> int:
     checks.chain((MAIN, MAIN, MAIN), np.float32, 8, timed=True)
     checks.chain((MAIN, MAIN, MAIN), np.complex128, 14, timed=True)
     checks.tiles()
+    checks.fp8_paths()
     checks.clusters()
     checks.megakernels((MAIN, MAIN, MAIN), np.float32, 8, chunk_limit=1 << 17, timed=True)
     checks.megakernels((MAIN, MAIN, MAIN), np.complex128, 14, chunk_limit=1 << 17, timed=True)
@@ -1251,7 +1323,8 @@ def main() -> int:
 
     print("phase 3d: fp8 main path", flush=True)
     fp8_counts = fp8_main_path(results, GemmPolicy, linalg, kernels)
-    print(f"  fp8 main-path launches: {fp8_counts}", flush=True)
+    print(f"  fp8 main-path launches: {fp8_counts} (fp8_karatsuba by TMA: "
+          f"{kernels.fp8_mod_gemm.fp8_karatsuba_mod_gemm_batched.tma_launches})", flush=True)
     results = [r for r in results if r["size"] == MAIN]
     torch.cuda.empty_cache()
 

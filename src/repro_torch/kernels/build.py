@@ -34,6 +34,7 @@ SOURCES = (
 )
 HEADERS = (
     "common.cuh", "gemm_tiles.cuh", "fp8_tiles.cuh", "cast_tile.cuh", "garner_tile.cuh", "residue_fma.cuh",
+    "hopper.cuh",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

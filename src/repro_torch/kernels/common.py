@@ -185,7 +185,7 @@ COMPILED_TILES = {
     ("fused", "real"): ((64, 64, 64), (128, 64, 64)),
     ("fused", "complex"): ((64, 64, 64), (64, 32, 64)),
     ("fp8", "real"): ((128, 64, 64), (64, 64, 64)),
-    ("fp8", "complex"): ((128, 64, 64), (64, 64, 64)),
+    ("fp8", "complex"): ((64, 64, 64), (64, 64, 128)),
 }
 
 #: the CUDA source of each (family, dtype class)

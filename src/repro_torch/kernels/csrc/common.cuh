@@ -11,6 +11,11 @@
 #define REPRO_MAX_MODULI 24
 #define REPRO_MAX_LIMBS 5  // 2^(24*4) stays inside the f32 range
 
+// The 32-bit shared-state-space address of a pointer into shared memory.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 // Canonical symmetric residue of an f32 integer |v| <~ 2^24 by the
 // reciprocal trick of the reference (kernels/common.py sym_mod_f32): the
 // guess n = rint(v * (1/p)) is within +/-1 of the quotient, and the two

@@ -1,7 +1,8 @@
-// e4m3 machinery of the two fp8 residue-GEMM kernels (fp8_mod_gemm.cu,
-// fp8_karatsuba.cu): the balanced base-16 digit split of int8 residues into
-// e4m3 bytes while a tile is staged, and the three exact digit products of
-// one m16n8k32 step.
+// e4m3 machinery of the fp8 residue-GEMM kernel fp8_mod_gemm.cu: the
+// balanced base-16 digit split of int8 residues into e4m3 bytes while a
+// tile is staged, and the three exact digit products of one m16n8k32 step.
+// fp8_karatsuba.cu shares the f16x2 arithmetic and the e4m3 pair
+// conversion, and splits by the same rule.
 //
 // Digits.  A residue r (|r| <= 127) is r = 16 hi + lo with hi = round(r/16),
 // half to even, and lo = r - 16 hi: |hi|, |lo| <= 8, so each digit has at

@@ -1,6 +1,6 @@
 // The division-free residue cast of the complex megakernel
-// (fused_karatsuba.cu), and the thread-block-cluster primitives it shares
-// its casts through.
+// (fused_karatsuba.cu); it includes hopper.cuh for the thread-block-cluster
+// primitives the megakernel shares its casts through.
 //
 // The cast computes what cast_tile.cuh's `cast_residue` computes — the
 // canonical symmetric residue mod p_l of trunc(a * scale), the reference's
@@ -33,6 +33,7 @@
 #pragma once
 
 #include "cast_tile.cuh"
+#include "hopper.cuh"
 
 // 1.5 * 2^23: the rint shifter above.  For an integer |r| < 2^22 the low
 // byte of the bits of r + kShift is r's two's-complement byte (the stored
@@ -103,35 +104,4 @@ __device__ __forceinline__ uint32_t pack4_residues(const float* r) {
   const uint32_t lo = __byte_perm(residue_byte(r[0]), residue_byte(r[1]), 0x0040);
   const uint32_t hi = __byte_perm(residue_byte(r[2]), residue_byte(r[3]), 0x0040);
   return __byte_perm(lo, hi, 0x5410);
-}
-
-// ---- thread-block clusters ---------------------------------------------------
-// A cluster's blocks write into each other's shared memory (distributed
-// shared memory) through `shared::cluster` addresses.  The rank of the block
-// at cluster position (x, y) is x + y * (cluster width).
-
-__device__ __forceinline__ uint32_t cluster_map(uint32_t smem_addr, uint32_t rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_addr), "r"(rank));
-  return out;
-}
-
-__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ void st_cluster(uint32_t addr, uint2 v) {
-  asm volatile("st.shared::cluster.v2.u32 [%0], {%1, %2};\n" ::"r"(addr), "r"(v.x), "r"(v.y)
-               : "memory");
-}
-
-// The cluster barrier in two halves: every thread of every block of the
-// cluster arrives (its shared-memory writes, local and remote, released)
-// before any passes the wait (and acquires them).
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
