@@ -17,8 +17,9 @@ failure is caught.
    head dim) of the attention kernel, with the path it takes (bf16: the
    TMA ring and warp-specialised wgmma kernel; f32: the SIMT kernel).
    Fails if ptxas serialized any wgmma instructions (its C7512 warning),
-   if a bf16 attention kernel spills, or if the e4m3 Karatsuba kernel
-   spills at its default tile.
+   if a bf16 attention kernel spills, or if the e4m3 Karatsuba kernel, the
+   int8 Karatsuba kernel or the real megakernel spills at its default
+   tile (in any of that tile's compiled variants).
 2. Hold each kernel against its plain PyTorch version on the card, bitwise
    (`torch.equal`) except attention: the chain scale -> cast (rows and columns, S = 1 or 2)
    -> product (with and without carry) -> Garner (f32 and double-single) at
@@ -40,23 +41,30 @@ failure is caught.
    worst case m = n = 128, k = FP8_K_CHUNK_LIMIT = 2^16: planes of -120
    (the largest digits in every product), of alternating signs, and
    random; for the complex kernel AR = -120, AI = 0.
-   The e4m3 Karatsuba kernel on both of its load paths, every tile, with
-   and without carry, against its plain version and the int8 Karatsuba
-   kernel: RAGGED at N = 7, 14 and 21 (k and n off multiples of 16: its
-   split threads load from global memory) and ALIGNED_RAGGED (257, 1024,
-   144) at N = 14 (TMA, ragged edges); the wrapper's `tma_launches` beside
-   `launches` must show RAGGED took no TMA launch and ALIGNED_RAGGED only
-   TMA launches.  Its thread-block cluster and the most clusters the card
-   holds at once, per tile and N, as for the complex megakernel.
+   The two Karatsuba kernels (`fp8_karatsuba`, `karatsuba_fused`, both on
+   wgmma with a TMA load path) on both of their load paths, every tile,
+   with and without carry, against their plain versions (the e4m3 one also
+   against the int8 Karatsuba kernel): RAGGED at N = 7, 14 and 21 (k and n
+   off multiples of 16: the kernel's own threads load from global memory)
+   and ALIGNED_RAGGED (257, 1024, 144) at N = 14 (TMA, ragged edges); the
+   wrappers' `tma_launches` beside `launches` must show RAGGED took no TMA
+   launch and ALIGNED_RAGGED only TMA launches.  The int8 Karatsuba kernel
+   also at its k bound, k = INT8_K_LIMIT = 2^17 (m = n = 128, N = 8, every
+   tile, with and without carry): planes of -127 (its int32 sums reach
+   127^2 k) and F operands at +-127.  The e4m3 kernel's thread-block
+   cluster and the most clusters the card holds at once, per tile and N,
+   as for the megakernels.
    Every compiled tile of the six GEMM kernels (`kernels.common.
    COMPILED_TILES`) against the plain version at the ragged shape: the
    product kernels with and without carry, the megakernels with raw and
    prepared B, f32 and double-single output, chunk_limit 256 and 2^17
-   (the complex megakernel at N = 7, 14 and 21, its NMAX 8, 16 and 24
-   instantiations, each also against the 4-launch composition); and at
-   4096^3 each non-default tile against the default tile's output,
-   bitwise, timed (CUDA events).  The complex megakernel's thread-block
-   cluster and the most clusters the card holds at once, per tile and N.
+   (the real megakernel at N = 8, 16 and 21, the complex one at N = 7, 14
+   and 21: their NMAX 8, 16 and 24 instantiations, 21 being the most
+   moduli a CRT context takes; each also against the 4-launch
+   composition); and at 4096^3 each non-default tile against the default
+   tile's output, bitwise, timed (CUDA events).  Both megakernels'
+   thread-block clusters and the most clusters the card holds at once, per
+   tile and N; the run fails if one does not fit.
    The launch-timing copy kernel (`launch_copy`) against `x.clone()` on an
    (8, 128) f32 tile and at COPY_SIZES elements, each also on a view
    4 bytes into its storage (the kernel's misaligned path), bitwise;
@@ -104,7 +112,10 @@ failure is caught.
    (c) the fused main path: the same GEMMs on the same operands with
        `execution="fused"`, counters zeroed before and read after: exactly
        1 megakernel launch per GEMM, bitwise equal to (b)'s output, timed
-       beside (b) and cuBLAS, relative error below 1e-4;
+       beside (b) and cuBLAS, relative error below 1e-4.  After its counts
+       are read, sgemm at 512^3 and 1024^3 (LAUNCH_BOUND_SIZES), where one
+       launch against four should tell, on `fused` and on `kernel` in
+       turns, bitwise equal, timed;
    (d) the fp8 main path: the same GEMMs on the same operands with
        `execution="fp8"`, counters zeroed before and read after: exactly 4
        launches per GEMM (cast, cast, one e4m3 product, Garner), bitwise
@@ -182,6 +193,12 @@ PATH_OF["flash_attention"] = "attention"
 COPY_SHAPE = (8, 128)      # the calibration's launch-timing tile
 COPY_SIZES = (1, 1023, 4097)  # copies off the kernel's 4-value groups
 FUSED_COMPLEX_N = (7, 14, 21)  # the complex megakernel's NMAX 8, 16, 24 instantiations
+# the real megakernel's NMAX 8, 16, 24 instantiations: 21 is the most moduli
+# make_crt_context gives (P stays within 159 bits)
+FUSED_REAL_N = (8, 16, 21)
+INT8_K_LIMIT = 1 << 17     # the int8 Karatsuba kernel's k bound (int32 sums of 127^2 k)
+LAUNCH_BOUND_SIZES = (512, 1024)  # sgemm sizes where one launch against four should tell
+LAUNCH_BOUND_REPS = 20
 RAGGED = (257, 1000, 129)  # (m, k, n) off every tile multiple
 ALIGNED_RAGGED = (257, 1024, 144)  # ragged edges, but k and n multiples of 16: strides TMA can map
 MAIN = 4096                # the main path's m = n = k
@@ -260,7 +277,13 @@ PTXAS_LABELS = {"flash_attention": (re.compile(r"fa_(f32|bf16)_kernelILi(\d+)E")
                                     lambda g: f"{g[0]} D={g[1]} ({ATTN_PATHS[g[0]]})"),
                 # fp8_karatsuba_kernel<BK, stages, TMA>: the tile 64 x 64 x BK
                 "fp8_karatsuba": (re.compile(r"fp8_karatsuba_kernelILi(\d+)ELi\d+ELb\d+E"),
-                                  lambda g: "tile " + tile_label((64, 64, g[0])))}
+                                  lambda g: "tile " + tile_label((64, 64, g[0]))),
+                # karatsuba_kernel<BN, BK, stages, TMA>: the tile 64 x BN x BK
+                "karatsuba_fused": (re.compile(r"karatsuba_kernelILi(\d+)ELi(\d+)ELi\d+ELb\d+E"),
+                                    lambda g: "tile " + tile_label((64, g[0], g[1])))}
+# the kernels that fail phase 1 if they spill at their default tile
+NO_SPILL_AT_DEFAULT = {"fp8_karatsuba": ("fp8", "complex"), "karatsuba_fused": ("kernel", "complex"),
+                       "fused_mod_gemm": ("fused", "real")}
 WGMMA_SERIALIZED = "wgmma.mma_async instructions are serialized"  # ptxas's warning (C7512)
 
 
@@ -387,28 +410,31 @@ class KernelChecks:
                                      lambda: plain(*ops, moduli=mods, carry=c))
                     print(f"  {name} tile {tile_label(tile)} {m}x{k}x{n} N={n_mod}: "
                           f"== plain with and without carry, bitwise", flush=True)
-        for dtype, n_mods in ((np.float32, (8,)), (np.complex64, FUSED_COMPLEX_N)):
+        for dtype, n_mods in ((np.float32, FUSED_REAL_N), (np.complex64, FUSED_COMPLEX_N)):
             for n_mod in n_mods:
                 for chunk_limit in (RAGGED_CHUNK, 1 << 17):
                     self.megakernels(RAGGED, dtype, n_mod, chunk_limit=chunk_limit, timed=False,
                                      all_tiles=True)
 
     def clusters(self):
-        """The complex megakernel's launch: its thread-block cluster and the
+        """The two megakernels' launches: their thread-block cluster and the
         most such clusters the card holds at once, per compiled tile and N."""
+        from repro_torch.kernels.int8_mod_gemm import fused_mod_cluster_info
         from repro_torch.kernels.karatsuba_fused import fused_cluster_info
 
-        rec = self.record["fused_karatsuba"]["clusters"] = {}
-        for tile in self.tiles_of["fused_karatsuba"]:
-            for n_mod in FUSED_COMPLEX_N:
-                info = fused_cluster_info(n_mod, tile)
-                rec[f"{tile_label(tile)} N={n_mod}"] = info
-                print(f"  fused_karatsuba tile {tile_label(tile)} N={n_mod}: cluster "
-                      f"{info['cluster'][0]}x{info['cluster'][1]} (m x n), at most "
-                      f"{info['max_active_clusters']} clusters at once, {info['smem_bytes']} B of "
-                      f"shared memory a block, {info['stages']} staging buffer(s)", flush=True)
-                if info["max_active_clusters"] < 1:
-                    raise AssertionError(f"fused_karatsuba tile {tile} N={n_mod}: no cluster fits")
+        for name, info_of, n_mods in (("fused_mod_gemm", fused_mod_cluster_info, FUSED_REAL_N),
+                                      ("fused_karatsuba", fused_cluster_info, FUSED_COMPLEX_N)):
+            rec = self.record[name]["clusters"] = {}
+            for tile in self.tiles_of[name]:
+                for n_mod in n_mods:
+                    info = info_of(n_mod, tile)
+                    rec[f"{tile_label(tile)} N={n_mod}"] = info
+                    print(f"  {name} tile {tile_label(tile)} N={n_mod}: cluster "
+                          f"{info['cluster'][0]}x{info['cluster'][1]} (m x n), at most "
+                          f"{info['max_active_clusters']} clusters at once, {info['smem_bytes']} B of "
+                          f"shared memory a block, {info['stages']} staging buffer(s)", flush=True)
+                    if info["max_active_clusters"] < 1:
+                        raise AssertionError(f"{name} tile {tile} N={n_mod}: no cluster fits")
         from repro_torch.kernels.fp8_mod_gemm import fp8_cluster_info
 
         rec = self.record["fp8_karatsuba"]["clusters"] = {}
@@ -424,44 +450,76 @@ class KernelChecks:
                 if info["max_active_clusters"] < 1:
                     raise AssertionError(f"fp8_karatsuba tile {tile} N={n_mod}: no cluster fits")
 
-    def fp8_paths(self):
-        """The e4m3 Karatsuba kernel on both of its load paths, every tile,
-        bitwise against its plain version and the int8 Karatsuba kernel,
-        with and without carry: RAGGED (k and n off multiples of 16: the
-        split threads load from global memory) at N = 7, 14 and 21, and
+    def load_paths(self, name):
+        """A Karatsuba kernel with two load paths (`fp8_karatsuba`,
+        `karatsuba_fused`) on both, every tile, bitwise against its plain
+        version (the e4m3 one also against the int8 kernel), with and
+        without carry: RAGGED (k and n off multiples of 16: the kernel's
+        threads load from global memory) at N = 7, 14 and 21, and
         ALIGNED_RAGGED (TMA, ragged edges) at N = 14.  The wrapper's counts
         show which path each launch took."""
         from repro_torch.core.moduli import make_crt_context
 
         _, _, kf, _ = self.mods
         f8 = self.f8
-        wrapper = f8.fp8_karatsuba_mod_gemm_batched
-        rec = self.record["fp8_karatsuba"]["paths"] = {}
+        wrapper, plain = {
+            "fp8_karatsuba": (f8.fp8_karatsuba_mod_gemm_batched, f8.fp8_karatsuba_mod_gemm_plain),
+            "karatsuba_fused": (kf.karatsuba_mod_gemm_batched, kf.karatsuba_mod_gemm_plain),
+        }[name]
+        rec = self.record[name]["paths"] = {}
         for shape, n_mods, tma in ((RAGGED, FUSED_COMPLEX_N, False), (ALIGNED_RAGGED, (14,), True)):
             m, k, n = shape
             for n_mod in n_mods:
                 mods = make_crt_context(n_mod).moduli
                 ops = [self.residues(mods, s) for s in ((m, k), (m, k), (k, n), (k, n))]
                 carry = (self.residues(mods, (m, n)), self.residues(mods, (m, n)))
-                int8 = {None: kf.karatsuba_mod_gemm_batched(*ops, moduli=mods),
-                        "carry": kf.karatsuba_mod_gemm_batched(*ops, moduli=mods, carry=carry)}
-                for tile in self.tiles_of["fp8_karatsuba"]:
+                int8 = None
+                if name == "fp8_karatsuba":
+                    int8 = {None: kf.karatsuba_mod_gemm_batched(*ops, moduli=mods),
+                            "carry": kf.karatsuba_mod_gemm_batched(*ops, moduli=mods, carry=carry)}
+                for tile in self.tiles_of[name]:
                     before = (wrapper.launches, wrapper.tma_launches)
                     for c in (None, carry):
                         got = self.compare(
-                            "fp8_karatsuba", lambda: wrapper(*ops, moduli=mods, carry=c, tile=tile),
-                            lambda: f8.fp8_karatsuba_mod_gemm_plain(*ops, moduli=mods, carry=c))
-                        self.same_as_int8("fp8_karatsuba", got, int8[None if c is None else "carry"],
-                                          f"{m}x{k}x{n} N={n_mod} tile {tile_label(tile)}")
+                            name, lambda: wrapper(*ops, moduli=mods, carry=c, tile=tile),
+                            lambda: plain(*ops, moduli=mods, carry=c))
+                        if int8 is not None:
+                            self.same_as_int8(name, got, int8[None if c is None else "carry"],
+                                              f"{m}x{k}x{n} N={n_mod} tile {tile_label(tile)}")
                     launched = wrapper.launches - before[0]
                     by_tma = wrapper.tma_launches - before[1]
                     label = f"{m}x{k}x{n} N={n_mod} tile {tile_label(tile)}"
                     rec[label] = {"launches": launched, "tma_launches": by_tma}
-                    print(f"  fp8_karatsuba {label}: == plain == int8 with and without carry, bitwise; "
-                          f"{launched} launches, {by_tma} of them by TMA", flush=True)
+                    print(f"  {name} {label}: == plain{' == int8' if int8 else ''} with and without carry, "
+                          f"bitwise; {launched} launches, {by_tma} of them by TMA", flush=True)
                     if by_tma != (launched if tma else 0):
-                        raise AssertionError(f"fp8_karatsuba {label}: {by_tma} of {launched} launches took "
+                        raise AssertionError(f"{name} {label}: {by_tma} of {launched} launches took "
                                              f"the TMA path, expected {'all' if tma else 'none'}")
+
+    def karatsuba_worst_case(self):
+        """The int8 Karatsuba kernel at its k bound, k = 2^17, m = n = 128, N
+        = 8, every tile, with and without carry, against its plain version:
+        planes of -127 (AR = AI = BR = BI: |D|, |E| reach 127^2 k, the most
+        an int32 sum may hold), and AR = 127, AI = 0 against BR = -127, BI
+        = 0 (the F operands at +-127, their largest)."""
+        from repro_torch.core.moduli import make_crt_context
+
+        _, _, kf, _ = self.mods
+        mods = make_crt_context(8).moduli
+        k = INT8_K_LIMIT
+        neg = lambda shape: torch.full((8, *shape), -127, dtype=torch.int8, device=self.dev)  # noqa: E731
+        zero = lambda shape: torch.zeros((8, *shape), dtype=torch.int8, device=self.dev)  # noqa: E731
+        cases = {"-127": (neg((128, k)), neg((128, k)), neg((k, 128)), neg((k, 128))),
+                 "largest sums": (-neg((128, k)), zero((128, k)), neg((k, 128)), zero((k, 128)))}
+        carry = (self.residues(mods, (128, 128)), self.residues(mods, (128, 128)))
+        for label, ops in cases.items():
+            for tile in self.tiles_of["karatsuba_fused"]:
+                for c in (None, carry):
+                    self.compare("karatsuba_fused",
+                                 lambda: kf.karatsuba_mod_gemm_batched(*ops, moduli=mods, carry=c, tile=tile),
+                                 lambda: kf.karatsuba_mod_gemm_plain(*ops, moduli=mods, carry=c))
+                print(f"  karatsuba_fused worst case 128x{k}x128 N=8 {label} tile {tile_label(tile)}: == plain "
+                      "with and without carry, bitwise", flush=True)
 
     def launch_copy(self):
         """The launch-timing copy kernel against x.clone() on the
@@ -1084,6 +1142,30 @@ def fused_main_path(results, GemmPolicy, linalg, kernels):
     return counts
 
 
+def launch_bound_sgemm(rng, dev, GemmPolicy, linalg):
+    """Phase 3c, after the fused main path's counts are read: sgemm at
+    LAUNCH_BOUND_SIZES, where launches weigh most, on `fused` (1 launch)
+    and on `kernel` (4), bitwise equal, each timed over LAUNCH_BOUND_REPS
+    calls (host clock, synchronized).  Returns {size: (fused_ms, kernel_ms)}."""
+    out = {}
+    for size in LAUNCH_BOUND_SIZES:
+        a = torch.from_numpy(phi_matrix(rng, (size, size), PHI, np.float32)).to(dev)
+        b = torch.from_numpy(phi_matrix(rng, (size, size), PHI, np.float32)).to(dev)
+        ys, ms = {}, {}
+        for execution in ("fused", "kernel", "kernel", "fused"):
+            pol = GemmPolicy(execution=execution, mode="fast")
+            linalg.sgemm(a, b, policy=pol)
+            ys[execution], t = timed_calls(lambda: linalg.sgemm(a, b, policy=pol), LAUNCH_BOUND_REPS)
+            ms.setdefault(execution, []).append(t)
+        if not torch.equal(ys["fused"], ys["kernel"]):
+            raise AssertionError(f"sgemm {size}^3: fused differs from kernel")
+        out[size] = (min(ms["fused"]), min(ms["kernel"]))
+        print(f"  sgemm {size}^3 fast: fused_ms={out[size][0]:.4f} (1 launch) kernel_ms={out[size][1]:.4f} "
+              f"(4 launches) fused/kernel={out[size][0] / out[size][1]:.3f}, bitwise equal "
+              f"(each the better of two runs of {LAUNCH_BOUND_REPS} calls)", flush=True)
+    return out
+
+
 def fp8_main_path(results, GemmPolicy, linalg, kernels):
     """Phase 3(d): the same GEMMs on the fp8 execution: 4 launches each (the
     product on an e4m3 kernel), bitwise equal to the kernel execution."""
@@ -1276,10 +1358,10 @@ def main() -> int:
     for label, (regs, spill, count) in ptxas["flash_attention"].items():
         if label.startswith("bf16") and spill:
             raise AssertionError(f"flash_attention {label}: {spill} bytes of spill stores")
-    default_fp8 = "tile " + tile_label(COMPILED_TILES["fp8", "complex"][0])
-    if ptxas["fp8_karatsuba"][default_fp8][1]:
-        raise AssertionError(f"fp8_karatsuba {default_fp8}: {ptxas['fp8_karatsuba'][default_fp8][1]} bytes "
-                             "of spill stores")
+    for name, slot in NO_SPILL_AT_DEFAULT.items():
+        default = "tile " + tile_label(COMPILED_TILES[slot][0])
+        if ptxas[name][default][1]:
+            raise AssertionError(f"{name} {default}: {ptxas[name][default][1]} bytes of spill stores")
     for name, log in logs.items():
         if name in ptxas:
             for label, (regs, spill, count) in ptxas[name].items():
@@ -1300,7 +1382,9 @@ def main() -> int:
     checks.chain((MAIN, MAIN, MAIN), np.float32, 8, timed=True)
     checks.chain((MAIN, MAIN, MAIN), np.complex128, 14, timed=True)
     checks.tiles()
-    checks.fp8_paths()
+    checks.load_paths("fp8_karatsuba")
+    checks.load_paths("karatsuba_fused")
+    checks.karatsuba_worst_case()
     checks.clusters()
     checks.megakernels((MAIN, MAIN, MAIN), np.float32, 8, chunk_limit=1 << 17, timed=True)
     checks.megakernels((MAIN, MAIN, MAIN), np.complex128, 14, chunk_limit=1 << 17, timed=True)
@@ -1315,16 +1399,19 @@ def main() -> int:
 
     print("phase 3b: kernel main path", flush=True)
     counts, results = main_path(rng, dev, GemmPolicy, linalg, kernels)
-    print(f"  kernel main-path launches: {counts}", flush=True)
+    tma = {"karatsuba_fused": kernels.karatsuba_fused.karatsuba_mod_gemm_batched.tma_launches}
+    print(f"  kernel main-path launches: {counts} (karatsuba_fused by TMA: {tma['karatsuba_fused']})",
+          flush=True)
 
     print("phase 3c: fused main path", flush=True)
     fused_counts = fused_main_path(results, GemmPolicy, linalg, kernels)
     print(f"  fused main-path launches: {fused_counts}", flush=True)
+    launch_bound_sgemm(rng, dev, GemmPolicy, linalg)
 
     print("phase 3d: fp8 main path", flush=True)
     fp8_counts = fp8_main_path(results, GemmPolicy, linalg, kernels)
-    print(f"  fp8 main-path launches: {fp8_counts} (fp8_karatsuba by TMA: "
-          f"{kernels.fp8_mod_gemm.fp8_karatsuba_mod_gemm_batched.tma_launches})", flush=True)
+    tma["fp8_karatsuba"] = kernels.fp8_mod_gemm.fp8_karatsuba_mod_gemm_batched.tma_launches
+    print(f"  fp8 main-path launches: {fp8_counts} (fp8_karatsuba by TMA: {tma['fp8_karatsuba']})", flush=True)
     results = [r for r in results if r["size"] == MAIN]
     torch.cuda.empty_cache()
 
@@ -1348,6 +1435,7 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces,
             "launches": launches[PATH_OF[name]][name],
+            "tma_launches": tma.get(name),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],

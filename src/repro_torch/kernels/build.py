@@ -116,3 +116,16 @@ def check_launch(name: str, status: int) -> None:
         describe.argtypes = [ctypes.c_int]
         describe.restype = ctypes.c_char_p
         raise RuntimeError(f"{name}: CUDA error {status} at launch: {describe(status).decode()}")
+
+
+def cluster_launch_info(name: str, tile, n_mod: int, n_fields: int) -> list[int]:
+    """What the C entry `<name>_cluster_info` of source `name` reports of
+    its cluster kernel's launch with `tile` at `n_mod` moduli: {CM, CN, the
+    most clusters the card holds at once, shared bytes a block, ...},
+    `n_fields` values.  Needs the card."""
+    fn = getattr(library(name), f"{name}_cluster_info")
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * n_fields)()
+    check_launch(name, fn(*tile, int(n_mod), info))
+    return list(info)

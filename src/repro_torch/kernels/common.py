@@ -181,7 +181,7 @@ def split_scale_exponent(e: torch.Tensor, bias: int = 0):
 #: The CUDA sources instantiate exactly these (their `REPRO_TILE` lists).
 COMPILED_TILES = {
     ("kernel", "real"): ((128, 128, 64), (128, 128, 128), (64, 128, 64), (128, 64, 64)),
-    ("kernel", "complex"): ((128, 64, 64), (64, 128, 64), (64, 64, 64)),
+    ("kernel", "complex"): ((64, 128, 64), (64, 64, 64), (64, 64, 128)),
     ("fused", "real"): ((64, 64, 64), (128, 64, 64)),
     ("fused", "complex"): ((64, 64, 64), (64, 32, 64)),
     ("fp8", "real"): ((128, 64, 64), (64, 64, 64)),

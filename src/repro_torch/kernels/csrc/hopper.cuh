@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives shared by the port's warp-specialised kernels
-// (flash_attention.cu, fp8_karatsuba.cu) and its cluster kernels
-// (fused_karatsuba.cu through residue_fma.cuh): mbarriers, TMA loads and
+// (flash_attention.cu, fp8_karatsuba.cu, karatsuba_fused.cu) and its
+// cluster kernels (fused_karatsuba.cu and fused_mod_gemm.cu through
+// residue_fma.cuh): mbarriers, TMA loads and
 // the tensor-map encoder, wgmma shared-memory descriptors and the wgmma
 // fence / commit / wait, and the thread-block-cluster barrier and
 // distributed-shared-memory stores.
@@ -44,6 +45,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 // writes to the threads that then acquire the phase with mbar_wait_cluster.
 __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
   asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// An arrival on a barrier of another block of the cluster with the
+// default, CTA-scope release; its owner waits with mbar_wait (CTA-scope
+// acquire).  Enough where the order carried is write-after-read of reads
+// already complete (wgmma.wait_group or ldmatrix returned them), as in a
+// stage ring's "empty" barriers, and far cheaper than the cluster-scope
+// release above: in karatsuba_fused.cu and fused_mod_gemm.cu that cost
+// thousands of cycles a slice (PERF.md section 6).
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];" ::"r"(bar) : "memory");
 }
 
 __device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {

@@ -30,19 +30,18 @@ bitwise the int8 engine's (`int8_mod_gemm_batched`,
   the digit split; `fp8_cluster_info` reports the launch); on CPU
   tensors it runs `fp8_karatsuba_mod_gemm_plain`.  The kernel loads its
   operands by TMA where k and n are multiples of 16 and every operand is
-  16-byte aligned (`uses_tma`), else from its own threads; the wrapper
-  counts the TMA launches in `.tma_launches` beside `.launches`.
+  16-byte aligned (`karatsuba_fused.uses_tma`), else from its own
+  threads; the wrapper counts the TMA launches in `.tma_launches` beside
+  `.launches`.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from . import build
 from .common import check_tile, on_card, plane_mod_params, sym_mod_f32, sym_mod_int32_dyn
 from .int8_mod_gemm import launch_mod_gemm
-from .karatsuba_fused import launch_karatsuba
+from .karatsuba_fused import launch_karatsuba, uses_tma
 
 # Per-launch K bound of the f32 digit sums: a k step adds at most 2 * 8 * 8
 # = 128 to X, and f32 integers are exact below 2^24, so k <= 2^17; the
@@ -196,23 +195,13 @@ def fp8_karatsuba_mod_gemm_batched(
         out = launch_karatsuba("fp8_karatsuba", "fp8_karatsuba_launch", ar, ai, br, bi,
                                moduli=moduli, carry=carry, tile=tile)
         fp8_karatsuba_mod_gemm_batched.launches += 1
-        fp8_karatsuba_mod_gemm_batched.tma_launches += uses_tma(ar, ai, br, bi)
+        fp8_karatsuba_mod_gemm_batched.tma_launches += uses_tma(ar, ai, br, bi, "fp8_karatsuba")
         return out
     return fp8_karatsuba_mod_gemm_plain(ar, ai, br, bi, moduli=moduli, carry=carry)
 
 
 fp8_karatsuba_mod_gemm_batched.launches = 0
 fp8_karatsuba_mod_gemm_batched.tma_launches = 0  # of them, those that loaded by TMA
-
-
-def uses_tma(ar, ai, br, bi) -> bool:
-    """Whether the e4m3 Karatsuba kernel loads these (card) operands by
-    TMA: the C entry point's own rule (k and n multiples of 16, every
-    operand 16-byte aligned), which shape and alignment alone decide."""
-    fn = build.library("fp8_karatsuba").fp8_karatsuba_uses_tma
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-    fn.restype = ctypes.c_int
-    return bool(fn(ar.data_ptr(), ai.data_ptr(), br.data_ptr(), bi.data_ptr(), br.shape[-1], ar.shape[-1]))
 
 
 def fp8_cluster_info(n_mod: int, tile: tuple[int, int, int] | None = None) -> dict:
@@ -222,11 +211,7 @@ def fp8_cluster_info(n_mod: int, tile: tuple[int, int, int] | None = None) -> di
     (`cudaOccupancyMaxActiveClusters`), the shared memory of a block, and
     the stages of its digit ring and of its TMA ring of raw slices.  Needs
     the card."""
-    tile = check_tile("fp8", "complex", tile)
-    fn = build.library("fp8_karatsuba").fp8_karatsuba_cluster_info
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    info = (ctypes.c_int * 6)()
-    build.check_launch("fp8_karatsuba", fn(*tile, int(n_mod), info))
-    return {"cluster": (info[0], info[1]), "max_active_clusters": info[2],
-            "smem_bytes": info[3], "stages": info[4], "raw_stages": info[5]}
+    cm, cn, clusters, smem, stages, raw_stages = build.cluster_launch_info(
+        "fp8_karatsuba", check_tile("fp8", "complex", tile), n_mod, 6)
+    return {"cluster": (cm, cn), "max_active_clusters": clusters, "smem_bytes": smem, "stages": stages,
+            "raw_stages": raw_stages}

@@ -13,7 +13,9 @@ Port of `repro.kernels.int8_mod_gemm`:
   cast of A (and of B, unless its planes come pre-cast) as prologue, the N
   plane products with the K-chunk reduction inside, Garner with inverse
   scaling as epilogue.  On CUDA tensors it launches
-  `csrc/fused_mod_gemm.cu`; on CPU tensors it runs `fused_mod_gemm_plain`.
+  `csrc/fused_mod_gemm.cu` (in thread-block clusters that share the casts;
+  `fused_mod_cluster_info` reports the launch); on CPU tensors it runs
+  `fused_mod_gemm_plain`.
 """
 from __future__ import annotations
 
@@ -196,6 +198,17 @@ def _fused_launch(a, b, e_mu, e_nu, ctx, *, n_limbs, out_dd, b_res, chunk_limit,
     build.check_launch("fused_mod_gemm", status)
     fused_mod_gemm.launches += 1
     return out
+
+
+def fused_mod_cluster_info(n_mod: int, tile: tuple[int, int, int] | None = None) -> dict:
+    """How the card runs the real megakernel at `n_mod` moduli with `tile`:
+    the thread-block cluster it launches in (`cluster`, (CM, CN) blocks
+    along m and n), the most such clusters the card holds at once
+    (`cudaOccupancyMaxActiveClusters`), the shared memory of a block and
+    its number of staging buffers.  Needs the card."""
+    cm, cn, clusters, smem, stages = build.cluster_launch_info(
+        "fused_mod_gemm", check_tile("fused", "real", tile), n_mod, 5)
+    return {"cluster": (cm, cn), "max_active_clusters": clusters, "smem_bytes": smem, "stages": stages}
 
 
 def fused_mod_gemm(

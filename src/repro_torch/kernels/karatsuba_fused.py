@@ -7,8 +7,11 @@ planes, and the epilogue emits CR = D - E and CI = F - D - E (mod p), with
 an optional (CR, CI) carry folded in (K-chunk combine).
 
 On CUDA tensors `karatsuba_mod_gemm_batched` launches
-`csrc/karatsuba_fused.cu`; on CPU tensors it runs
-`karatsuba_mod_gemm_plain`.
+`csrc/karatsuba_fused.cu` (wgmma, in thread-block clusters that share the
+preparation of B); on CPU tensors it runs `karatsuba_mod_gemm_plain`.  The
+kernel loads its operands by TMA where k and n are multiples of 16 and
+every operand is 16-byte aligned (`uses_tma`), else from its own threads;
+the wrapper counts the TMA launches in `.tma_launches` beside `.launches`.
 
 `fused_karatsuba_mod_gemm` is the one-launch complex megakernel (port of
 `repro.kernels.karatsuba_fused.fused_karatsuba_mod_gemm`): the casts of
@@ -139,11 +142,30 @@ def karatsuba_mod_gemm_batched(
         out = launch_karatsuba("karatsuba_fused", "karatsuba_mod_gemm_launch", ar, ai, br, bi,
                                moduli=moduli, carry=carry, tile=tile)
         karatsuba_mod_gemm_batched.launches += 1
+        karatsuba_mod_gemm_batched.tma_launches += uses_tma(ar, ai, br, bi)
         return out
     return karatsuba_mod_gemm_plain(ar, ai, br, bi, moduli=moduli, carry=carry)
 
 
 karatsuba_mod_gemm_batched.launches = 0
+karatsuba_mod_gemm_batched.tma_launches = 0  # of them, those that loaded by TMA
+
+
+def uses_tma(ar, ai, br, bi, source: str = "karatsuba_fused") -> bool:
+    """Whether the Karatsuba kernel of `source` (`karatsuba_fused` or
+    `fp8_karatsuba`) loads these (card) operands by TMA: its C entry
+    point's own rule (k and n multiples of 16, every operand 16-byte
+    aligned), which shape and alignment alone decide."""
+    return bool(_uses_tma_entry(source)(ar.data_ptr(), ai.data_ptr(), br.data_ptr(), bi.data_ptr(),
+                                        br.shape[-1], ar.shape[-1]))
+
+
+@functools.cache
+def _uses_tma_entry(source: str):
+    fn = getattr(build.library(source), f"{source}_uses_tma")
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    return fn
 
 
 # --------------------------------------------------------------- megakernel
@@ -225,14 +247,9 @@ def fused_cluster_info(n_mod: int, tile: tuple[int, int, int] | None = None) -> 
     blocks along m and n), the most such clusters the card holds at once
     (`cudaOccupancyMaxActiveClusters`), the shared memory of a block and
     its number of staging buffers.  Needs the card."""
-    tile = check_tile("fused", "complex", tile)
-    fn = build.library("fused_karatsuba").fused_karatsuba_cluster_info
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    info = (ctypes.c_int * 5)()
-    build.check_launch("fused_karatsuba", fn(*tile, int(n_mod), info))
-    return {"cluster": (info[0], info[1]), "max_active_clusters": info[2],
-            "smem_bytes": info[3], "stages": info[4]}
+    cm, cn, clusters, smem, stages = build.cluster_launch_info(
+        "fused_karatsuba", check_tile("fused", "complex", tile), n_mod, 5)
+    return {"cluster": (cm, cn), "max_active_clusters": clusters, "smem_bytes": smem, "stages": stages}
 
 
 def fused_karatsuba_mod_gemm(

@@ -2,14 +2,22 @@
 """Count the SASS instructions of one residue cast, the int32 `%` one
 and the division-free one, as `nvcc` compiles them for sm_90a.
 
-It compiles a probe source with three kernels, each casting one f32 value
-per thread with the port's build flags (`kernels/build.NVCC_FLAGS`):
+It compiles a probe source with four kernels, each casting f32 values with
+the port's build flags (`kernels/build.NVCC_FLAGS`):
 
 - `probe_base`: the load, the index and the byte store alone;
 - `probe_div`: `cast_residue` of `csrc/cast_tile.cuh` (an int32 `%` per
-  limb), as `residue_cast.cu` and `fused_mod_gemm.cu` run it;
+  limb), as `residue_cast.cu` runs it;
 - `probe_fma`: `residue_fma` of `csrc/residue_fma.cuh` and its byte, as
-  `fused_karatsuba.cu` runs it.
+  `fused_karatsuba.cu` and `fused_mod_gemm.cu` run it;
+- `probe_word`: four values a thread through `residue_fma` and
+  `pack4_residues` into one word, as the megakernels' cast of a share
+  (`cast_store`) does (its counts are per word, four casts, less
+  `probe_base`'s one load and store).
+
+`MUFU.RCP` in a probe's counts is the reciprocal with which every 32-bit
+integer division or remainder by a run-time divisor starts: the
+division-free probes have none.
 
 Both casts read the plane's constants with a run-time plane index and
 take the number of limbs at run time, as the kernels do, so the code of
@@ -54,6 +62,15 @@ extern "C" __global__ void probe_fma(const float* x, int8_t* out, float scale, i
   const PlaneCast pc = plane_cast(cp, l);
   out[i] = static_cast<int8_t>(residue_byte(residue_fma(x[i], scale, cp.n_limbs, pc)));
 }
+
+extern "C" __global__ void probe_word(const float* x, int8_t* out, float scale, int l, CastParams cp) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const PlaneCast pc = plane_cast(cp, l);
+  const float4 v = reinterpret_cast<const float4*>(x)[i];
+  const float r[4] = {residue_fma(v.x, scale, cp.n_limbs, pc), residue_fma(v.y, scale, cp.n_limbs, pc),
+                      residue_fma(v.z, scale, cp.n_limbs, pc), residue_fma(v.w, scale, cp.n_limbs, pc)};
+  reinterpret_cast<uint32_t*>(out)[i] = pack4_residues(r);
+}
 """
 
 # SASS opcodes by the unit that issues them
@@ -87,6 +104,8 @@ def count_sass(text: str) -> dict[str, collections.Counter]:
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
         if m and current is not None and m.group(1) != "NOP":
             current[m.group(1)] += 1
+            if m.group(1) == "MUFU" and ".RCP" in line:
+                current["MUFU.RCP"] += 1
     return out
 
 
@@ -106,14 +125,15 @@ def main() -> int:
     counts = count_sass(sass)
     base = counts["probe_base"]
     record = {}
-    for name in ("probe_div", "probe_fma"):
+    for name in ("probe_div", "probe_fma", "probe_word"):
         diff = collections.Counter(counts[name])
         diff.subtract(base)
+        rcp = diff.pop("MUFU.RCP", 0)  # of the MUFU, the reciprocals (counted once, as MUFU, in the rest)
         by_class = collections.Counter()
         for op, c in diff.items():
             by_class[opcode_class(op)] += c
         record[name] = {"total": sum(diff.values()), "by_class": dict(sorted(by_class.items())),
-                        "by_opcode": {op: c for op, c in sorted(diff.items()) if c}}
+                        "by_opcode": {op: c for op, c in sorted(diff.items()) if c}, "mufu_rcp": rcp}
     print(json.dumps({"sass_less_probe_base": record, "nvcc_flags": flags}), flush=True)
     return 0
 

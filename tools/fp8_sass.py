@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
-"""Count the tensor-core, conversion and fold instructions of the e4m3
-Karatsuba kernel (`csrc/fp8_karatsuba.cu`) as `nvcc` compiled it for
-sm_90a, per compiled variant.
+"""Count the tensor-core, conversion and fold instructions of one of the
+port's GEMM kernels as `nvcc` compiled it for sm_90a, per compiled variant:
+the e4m3 Karatsuba kernel (`csrc/fp8_karatsuba.cu`, the default), the int8
+Karatsuba kernel (`csrc/karatsuba_fused.cu`) or the real megakernel
+(`csrc/fused_mod_gemm.cu`).
 
-It builds one checkout's `fp8_karatsuba` library (into that checkout's
+It builds one checkout's library of that kernel (into that checkout's
 `build/`), lists it with `cuobjdump -sass` and counts, for each kernel
-function, the wgmma (QGMMA for e4m3) and mma.sync (HMMA) instructions, F2I (float to integer
-conversion), FADD and FFMA instructions and the local-memory loads and
-stores (LDL, STL): over the whole function, and over its main loop, taken
-as the instructions from its first tensor-core instruction to its last.  Each variant is labelled by its tile (and, where the source
-compiles both, the load path).  Needs the CUDA toolkit (`nvcc`,
-`cuobjdump`):
+function, the wgmma (QGMMA for e4m3, IGMMA for int8) and mma.sync (HMMA,
+IMMA) instructions, F2I (float to integer conversion), FADD and FFMA
+instructions, MUFU.RCP (the reciprocal with which every 32-bit integer
+division or remainder by a run-time divisor starts), and the
+local-memory loads and stores (LDL, STL): over the whole function, and over
+its main loop, taken as the instructions from its first tensor-core
+instruction to its last.  Each variant is labelled by its tile (and the
+load path, N bound or operand kind where the source compiles several).
+Needs the CUDA toolkit (`nvcc`, `cuobjdump`):
 
-    python3 tools/fp8_sass.py [--src PATH/TO/CHECKOUT/src]
+    python3 tools/fp8_sass.py [--kernel NAME] [--src PATH/TO/CHECKOUT/src]
 
-It prints one JSON line: {"src", "functions": {label: {"all": {...},
-"main_loop": {...}}}}.
+It prints one JSON line: {"src", "kernel", "functions": {label: {"all":
+{...}, "main_loop": {...}}}}.
 """
 from __future__ import annotations
 
@@ -29,29 +34,37 @@ import sys
 
 # wgmma is HGMMA (f16, bf16), QGMMA (e4m3, e5m2) or IGMMA (int8) in SASS;
 # mma.sync is HMMA (e4m3 included on sm_90) or IMMA
-OPCODES = ("QGMMA", "HGMMA", "IGMMA", "HMMA", "IMMA", "F2I", "FADD", "FFMA", "LDL", "STL")
+OPCODES = ("QGMMA", "HGMMA", "IGMMA", "HMMA", "IMMA", "F2I", "FADD", "FFMA", "MUFU.RCP", "LDL", "STL")
 TENSOR = ("QGMMA", "HGMMA", "IGMMA", "HMMA", "IMMA")
+KERNELS = ("fp8_karatsuba", "karatsuba_fused", "fused_mod_gemm")
 # the variant's label from its mangled name: Tile<BM, BN, BK, WN> (a kernel of
-# mma.sync tiles) or fp8_karatsuba_kernel<BK, stages, TMA>
+# mma.sync tiles; the megakernel's also by N bound, prepared B and vector
+# loads), fp8_karatsuba_kernel<BK, stages, TMA> or karatsuba_kernel<BN, BK,
+# stages, TMA>
 LABELS = (
+    (re.compile(r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi\d+EELi(\d+)ELb(\d)ELb(\d)E"),
+     lambda g: f"tile {g[0]}x{g[1]}x{g[2]} nmax={g[3]} prepared={g[4]} vec={g[5]}"),
     (re.compile(r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi\d+EELb(\d)E"),
      lambda g: f"tile {g[0]}x{g[1]}x{g[2]} vec={g[3]}"),
     (re.compile(r"fp8_karatsuba_kernelILi(\d+)ELi\d+ELb(\d)E"),
      lambda g: f"tile 64x64x{g[0]} {'tma' if g[1] == '1' else 'global loads'}"),
+    (re.compile(r"karatsuba_kernelILi(\d+)ELi(\d+)ELi\d+ELb(\d)E"),
+     lambda g: f"tile 64x{g[0]}x{g[1]} {'tma' if g[2] == '1' else 'global loads'}"),
 )
 
 
 def sass_functions(text: str) -> dict[str, list[str]]:
-    """{function: [base opcode, in order]} from `cuobjdump -sass`, NOPs left out."""
+    """{function: [opcode, in order]} from `cuobjdump -sass`, NOPs left out:
+    the base opcode, except MUFU with its function (MUFU.RCP)."""
     out, current = {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             current = out.setdefault(m.group(1), [])
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(\.[A-Z0-9]+)?", line)
         if m and current is not None and m.group(1) != "NOP":
-            current.append(m.group(1))
+            current.append(m.group(1) + (m.group(2) if m.group(1) == "MUFU" and m.group(2) else ""))
     return out
 
 
@@ -72,20 +85,21 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(pathlib.Path(__file__).resolve().parents[1] / "src"),
                     help="the `src` directory of the checkout (default: this one)")
+    ap.add_argument("--kernel", default="fp8_karatsuba", choices=KERNELS, help="the kernel's CUDA source")
     args = ap.parse_args()
     sys.path.insert(0, args.src)
     from repro_torch.kernels import build
 
-    build.library("fp8_karatsuba")
+    build.library(args.kernel)
     cuobjdump = str(pathlib.Path(build.nvcc_path()).with_name("cuobjdump"))
-    sass = subprocess.run([cuobjdump, "-sass", str(build.library_path("fp8_karatsuba"))],
+    sass = subprocess.run([cuobjdump, "-sass", str(build.library_path(args.kernel))],
                           capture_output=True, text=True, check=True).stdout
     record = {}
     for name, ops in sass_functions(sass).items():
         where = [i for i, op in enumerate(ops) if op in TENSOR]
         loop = ops[where[0]:where[-1] + 1] if where else []
         record[label_of(name)] = {"all": counts(ops), "main_loop": counts(loop)}
-    print(json.dumps({"src": args.src, "functions": record}), flush=True)
+    print(json.dumps({"src": args.src, "kernel": args.kernel, "functions": record}), flush=True)
     return 0
 
 

@@ -7,9 +7,9 @@ moduli real, 14 complex) through its wrapper's plain call, which launches
 the kernel's default tile; the attention kernel runs one causal 32k prefill
 at Qwen2.5-32B's widths (B = 1, S = 32768, H = 40, KV = 8, D = 128, bf16)
 through `flash_attention`, where the checkout has it.  Each is timed with
-CUDA events (mean of `--reps` launches after a warm-up; one launch for the
-two megakernels).  The copy kernel (`launch_copy`, on the calibration's
-(8, 128) f32 tile) and `x.clone()` beside it are timed as the device sees
+CUDA events (mean of `--reps` launches after a warm-up).  The copy
+kernel (`launch_copy`, on the calibration's (8, 128) f32 tile) and
+`x.clone()` beside it are timed as the device sees
 them: 1000 launches each, enqueued while the stream is held busy, so the
 host's launch path does not pace them (`launch_copy` and `x.clone` in the
 output).  The calls take no tile argument, so the script also
@@ -19,10 +19,13 @@ b, a):
 
     python3 tools/kernel_times.py --src PATH/TO/CHECKOUT/src
 
-It builds that checkout's kernels first (into its `build/`) and prints one
-JSON line: {"src", "card", "ms": {kernel: ms}}.  `--only NAME [NAME ...]`
-builds and times only those kernels (a tree that differs from another in
-one source).
+It builds that checkout's kernels first (into its `build/`), holds each
+GEMM kernel it times against its plain version, bitwise, at (m, k, n) =
+(257, 1000, 129) and (257, 1024, 144) (ragged edges; k and n off and on
+multiples of 16), and prints one JSON line: {"src", "card", "ms": {kernel:
+ms}, "bitwise": {kernel: bool}}; it exits 1 if a kernel disagrees.
+`--only NAME [NAME ...]` builds and times only those kernels (a tree that
+differs from another in one source).
 """
 from __future__ import annotations
 
@@ -33,6 +36,57 @@ import subprocess
 import sys
 
 import numpy as np
+
+
+def check(name, rng, dev) -> bool:
+    """GEMM kernel `name` against its plain version, bitwise, at two ragged
+    shapes (N = 8 real, 14 complex; canonical residue planes for the
+    product kernels, f32 integers for the megakernels, with and without
+    chunk reductions)."""
+    import torch
+
+    from repro_torch.core.moduli import make_crt_context
+    from repro_torch.core.plan import n_limbs_for_ctx
+    from repro_torch.kernels import fp8_mod_gemm as f8, int8_mod_gemm as ig, karatsuba_fused as kf
+
+    def same(got, want):
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        return all(torch.equal(g, w) for g, w in pairs)
+
+    ok = True
+    for m, k, n in ((257, 1000, 129), (257, 1024, 144)):
+        ctx = make_crt_context(14 if name in ("karatsuba_fused", "fused_karatsuba", "fp8_karatsuba") else 8)
+        mods = ctx.moduli
+
+        def planes(shape):
+            return torch.from_numpy(np.stack([rng.integers(-((p - 1) // 2), (p - 1) // 2 + 1, shape)
+                                              for p in mods]).astype(np.int8)).to(dev)
+
+        def mant(shape):
+            return torch.from_numpy(rng.integers(-500, 501, shape).astype(np.float32)).to(dev)
+
+        zm, zn = (torch.zeros(x, dtype=torch.int32, device=dev) for x in (m, n))
+        if name in ("int8_mod_gemm", "fp8_mod_gemm"):
+            a, b = planes((m, k)), planes((k, n))
+            mod = ig if name == "int8_mod_gemm" else f8
+            fn, plain = (getattr(mod, f"{name}_batched"), getattr(mod, f"{name}_plain"))
+            ok &= same(fn(a, b, moduli=mods), plain(a, b, moduli=mods))
+        elif name in ("karatsuba_fused", "fp8_karatsuba"):
+            ops = [planes(shape) for shape in ((m, k), (m, k), (k, n), (k, n))]
+            fn, plain = ((kf.karatsuba_mod_gemm_batched, kf.karatsuba_mod_gemm_plain) if name == "karatsuba_fused"
+                         else (f8.fp8_karatsuba_mod_gemm_batched, f8.fp8_karatsuba_mod_gemm_plain))
+            ok &= same(fn(*ops, moduli=mods), plain(*ops, moduli=mods))
+        elif name == "fused_mod_gemm":
+            a, b = mant((m, k)), mant((k, n))
+            for out_dd in (False, True):
+                kw = dict(n_limbs=n_limbs_for_ctx(ctx), out_dd=out_dd, chunk_limit=256)
+                ok &= same(ig.fused_mod_gemm(a, b, zm, zn, ctx, **kw), ig.fused_mod_gemm_plain(a, b, zm, zn, ctx, **kw))
+        elif name == "fused_karatsuba":
+            ops = [mant(shape) for shape in ((m, k), (m, k), (k, n), (k, n))]
+            kw = dict(n_limbs=n_limbs_for_ctx(ctx), chunk_limit=256)
+            ok &= same(kf.fused_karatsuba_mod_gemm(*ops, zm, zn, ctx, **kw),
+                       kf.fused_karatsuba_mod_gemm_plain(*ops, zm, zn, ctx, **kw))
+    return bool(ok)
 
 
 def main() -> int:
@@ -75,27 +129,24 @@ def main() -> int:
     far, fai, fbr, fbi = (mant((size, size)) for _ in range(4))
     zeros = torch.zeros(size, dtype=torch.int32, device=dev)
     calls = {
-        "int8_mod_gemm": (lambda: int8_mod_gemm.int8_mod_gemm_batched(a, b, moduli=real.moduli),
-                          args.reps),
-        "karatsuba_fused": (lambda: karatsuba_fused.karatsuba_mod_gemm_batched(
-            ar, ai, br, bi, moduli=cplx.moduli), args.reps),
-        "fused_mod_gemm": (lambda: int8_mod_gemm.fused_mod_gemm(
-            fa, fb, zeros, zeros, real, n_limbs=n_limbs_for_ctx(real)), 1),
-        "fused_karatsuba": (lambda: karatsuba_fused.fused_karatsuba_mod_gemm(
-            far, fai, fbr, fbi, zeros, zeros, cplx, n_limbs=n_limbs_for_ctx(cplx)), 1),
-        "fp8_mod_gemm": (lambda: fp8_mod_gemm.fp8_mod_gemm_batched(a, b, moduli=real.moduli),
-                         args.reps),
-        "fp8_karatsuba": (lambda: fp8_mod_gemm.fp8_karatsuba_mod_gemm_batched(
-            ar, ai, br, bi, moduli=cplx.moduli), args.reps),
+        "int8_mod_gemm": lambda: int8_mod_gemm.int8_mod_gemm_batched(a, b, moduli=real.moduli),
+        "karatsuba_fused": lambda: karatsuba_fused.karatsuba_mod_gemm_batched(ar, ai, br, bi, moduli=cplx.moduli),
+        "fused_mod_gemm": lambda: int8_mod_gemm.fused_mod_gemm(
+            fa, fb, zeros, zeros, real, n_limbs=n_limbs_for_ctx(real)),
+        "fused_karatsuba": lambda: karatsuba_fused.fused_karatsuba_mod_gemm(
+            far, fai, fbr, fbi, zeros, zeros, cplx, n_limbs=n_limbs_for_ctx(cplx)),
+        "fp8_mod_gemm": lambda: fp8_mod_gemm.fp8_mod_gemm_batched(a, b, moduli=real.moduli),
+        "fp8_karatsuba": lambda: fp8_mod_gemm.fp8_karatsuba_mod_gemm_batched(ar, ai, br, bi, moduli=cplx.moduli),
     }
     if "flash_attention" in kernels.WRAPPERS:
         # its own names: the GEMM calls above close over `a` and `b`
         bsz, seq, heads, kv_heads, hd = 1, 32768, 40, 8, 128
         q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev).to(torch.bfloat16)
                    for shape in ((bsz, seq, heads, hd), (bsz, seq, kv_heads, hd), (bsz, seq, kv_heads, hd)))
-        calls["flash_attention"] = (lambda: kernels.flash_attention.flash_attention(q, k, v), args.reps)
+        calls["flash_attention"] = lambda: kernels.flash_attention.flash_attention(q, k, v)
     if args.only:
         calls = {name: call for name, call in calls.items() if name in args.only}
+    bitwise = {name: check(name, rng, dev) for name in calls if name != "flash_attention"}
     ms = {}
     if "launch_copy" in kernels.WRAPPERS and (not args.only or "launch_copy" in args.only):
         from chip_smoke import device_ms
@@ -104,20 +155,20 @@ def main() -> int:
         x = torch.from_numpy(rng.standard_normal((8, 128)).astype(np.float32)).to(dev)
         for name, fn in (("launch_copy", lambda: launch_copy(x)), ("x.clone", x.clone)):
             ms[name] = device_ms(fn, 1000)
-    for name, (fn, reps) in calls.items():
+    for name, fn in calls.items():
         fn()
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(reps):
+        for _ in range(args.reps):
             fn()
         end.record()
         torch.cuda.synchronize()
-        ms[name] = start.elapsed_time(end) / reps
+        ms[name] = start.elapsed_time(end) / args.reps
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    print(json.dumps({"src": args.src, "card": card, "ms": ms}), flush=True)
-    return 0
+    print(json.dumps({"src": args.src, "card": card, "ms": ms, "bitwise": bitwise}), flush=True)
+    return 0 if all(bitwise.values()) else 1
 
 
 if __name__ == "__main__":
