@@ -17,9 +17,9 @@ failure is caught.
    head dim) of the attention kernel, with the path it takes (bf16: the
    TMA ring and warp-specialised wgmma kernel; f32: the SIMT kernel).
    Fails if ptxas serialized any wgmma instructions (its C7512 warning),
-   if a bf16 attention kernel spills, or if the e4m3 Karatsuba kernel, the
-   int8 Karatsuba kernel or the real megakernel spills at its default
-   tile (in any of that tile's compiled variants).
+   if a bf16 attention kernel spills, or if either e4m3 kernel, the int8
+   Karatsuba kernel or the real megakernel spills at its default tile (in
+   any of that tile's compiled variants).
 2. Hold each kernel against its plain PyTorch version on the card, bitwise
    (`torch.equal`) except attention: the chain scale -> cast (rows and columns, S = 1 or 2)
    -> product (with and without carry) -> Garner (f32 and double-single) at
@@ -41,19 +41,28 @@ failure is caught.
    worst case m = n = 128, k = FP8_K_CHUNK_LIMIT = 2^16: planes of -120
    (the largest digits in every product), of alternating signs, and
    random; for the complex kernel AR = -120, AI = 0.
-   The two Karatsuba kernels (`fp8_karatsuba`, `karatsuba_fused`, both on
-   wgmma with a TMA load path) on both of their load paths, every tile,
-   with and without carry, against their plain versions (the e4m3 one also
-   against the int8 Karatsuba kernel): RAGGED at N = 7, 14 and 21 (k and n
-   off multiples of 16: the kernel's own threads load from global memory)
-   and ALIGNED_RAGGED (257, 1024, 144) at N = 14 (TMA, ragged edges); the
-   wrappers' `tma_launches` beside `launches` must show RAGGED took no TMA
-   launch and ALIGNED_RAGGED only TMA launches.  The int8 Karatsuba kernel
+   The three kernels on wgmma with a TMA load path (`fp8_karatsuba`,
+   `fp8_mod_gemm`, `karatsuba_fused`) on both of their load paths, every
+   tile, with and without carry, against their plain versions (the e4m3
+   ones also against the int8 kernels): RAGGED at N = 7, 14 and 21 (real:
+   8, 16, 21; k and n off multiples of 16: the kernel's own threads load
+   from global memory) and ALIGNED_RAGGED (257, 1024, 144) at N = 14
+   (real: 8; TMA, ragged edges), the real one also on views 1 byte into
+   their storage (global loads, byte by byte); the wrappers'
+   `tma_launches` beside `launches` must show RAGGED and the offset views
+   took no TMA launch and ALIGNED_RAGGED only TMA launches.  The int8 Karatsuba kernel
    also at its k bound, k = INT8_K_LIMIT = 2^17 (m = n = 128, N = 8, every
    tile, with and without carry): planes of -127 (its int32 sums reach
-   127^2 k) and F operands at +-127.  The e4m3 kernel's thread-block
-   cluster and the most clusters the card holds at once, per tile and N,
+   127^2 k) and F operands at +-127.  The e4m3 kernels' thread-block
+   clusters and the most clusters the card holds at once, per tile and N,
    as for the megakernels.
+   The residue cast against its plain version on both scale axes, S = 1
+   and 2 and a 2-D input, n_limbs 1-4 (N = 2, 8, 14, 20), at a ragged odd
+   k (its scalar path) and a k that is a multiple of 4 (its vector path),
+   on inputs and scale vectors 4 bytes into their storage and an input 16
+   bytes in; moduli outside odd 5..255 refused by the wrapper and by the C
+   entry.  At the main path's shape both of its casts are timed (A's row
+   scales as `ms`, B's column scales as `cols_ms`).
    Every compiled tile of the six GEMM kernels (`kernels.common.
    COMPILED_TILES`) against the plain version at the ragged shape: the
    product kernels with and without carry, the megakernels with raw and
@@ -278,12 +287,15 @@ PTXAS_LABELS = {"flash_attention": (re.compile(r"fa_(f32|bf16)_kernelILi(\d+)E")
                 # fp8_karatsuba_kernel<BK, stages, TMA>: the tile 64 x 64 x BK
                 "fp8_karatsuba": (re.compile(r"fp8_karatsuba_kernelILi(\d+)ELi\d+ELb\d+E"),
                                   lambda g: "tile " + tile_label((64, 64, g[0]))),
+                # fp8_mod_gemm_kernel<BK, stages, TMA>: the tile 128 x 64 x BK
+                "fp8_mod_gemm": (re.compile(r"fp8_mod_gemm_kernelILi(\d+)ELi\d+ELb\d+E"),
+                                 lambda g: "tile " + tile_label((128, 64, g[0]))),
                 # karatsuba_kernel<BN, BK, stages, TMA>: the tile 64 x BN x BK
                 "karatsuba_fused": (re.compile(r"karatsuba_kernelILi(\d+)ELi(\d+)ELi\d+ELb\d+E"),
                                     lambda g: "tile " + tile_label((64, g[0], g[1])))}
 # the kernels that fail phase 1 if they spill at their default tile
-NO_SPILL_AT_DEFAULT = {"fp8_karatsuba": ("fp8", "complex"), "karatsuba_fused": ("kernel", "complex"),
-                       "fused_mod_gemm": ("fused", "real")}
+NO_SPILL_AT_DEFAULT = {"fp8_karatsuba": ("fp8", "complex"), "fp8_mod_gemm": ("fp8", "real"),
+                       "karatsuba_fused": ("kernel", "complex"), "fused_mod_gemm": ("fused", "real")}
 WGMMA_SERIALIZED = "wgmma.mma_async instructions are serialized"  # ptxas's warning (C7512)
 
 
@@ -336,6 +348,18 @@ def attention_work(q, k, causal):
     sk, kv = k.shape[1], k.shape[2]
     pairs = sum(min(i + 1, sk) for i in range(s)) if causal else s * sk
     return q.element_size() * b * d * (2 * s * h + 2 * sk * kv), 4 * d * h * b * pairs
+
+
+def cast_flops(n_mod, n_limbs):
+    """f32 operations that one element's residue cast needs on the
+    division-free route (`residue_fma.cuh`), an FMA counted as 2 as the 67
+    TFLOP/s peak counts it: the scale product (1); the peel of each limb
+    above the lowest, a multiply and an fma (3); per plane, each limb's
+    residue (fma, add, fma: 5), the radix sum (the lowest limb's radix is
+    2^0 = 1, so the sum starts from its residue and takes one fma a limb
+    above it: 2 each) and the final reduce (5).  Packing the residues into
+    bytes is not arithmetic of the function and is not counted."""
+    return 1 + 3 * (n_limbs - 1) + n_mod * (5 * n_limbs + 2 * (n_limbs - 1) + 5)
 
 
 def card_line() -> str:
@@ -435,48 +459,61 @@ class KernelChecks:
                           f"shared memory a block, {info['stages']} staging buffer(s)", flush=True)
                     if info["max_active_clusters"] < 1:
                         raise AssertionError(f"{name} tile {tile} N={n_mod}: no cluster fits")
-        from repro_torch.kernels.fp8_mod_gemm import fp8_cluster_info
+        from repro_torch.kernels.fp8_mod_gemm import fp8_cluster_info, fp8_mod_cluster_info
 
-        rec = self.record["fp8_karatsuba"]["clusters"] = {}
-        for tile in self.tiles_of["fp8_karatsuba"]:
-            for n_mod in FUSED_COMPLEX_N:
-                info = fp8_cluster_info(n_mod, tile)
-                rec[f"{tile_label(tile)} N={n_mod}"] = info
-                print(f"  fp8_karatsuba tile {tile_label(tile)} N={n_mod}: cluster "
-                      f"{info['cluster'][0]}x{info['cluster'][1]} (m x n), at most "
-                      f"{info['max_active_clusters']} clusters at once, {info['smem_bytes']} B of "
-                      f"shared memory a block, {info['stages']} digit stage(s), "
-                      f"{info['raw_stages']} raw stage(s)", flush=True)
-                if info["max_active_clusters"] < 1:
-                    raise AssertionError(f"fp8_karatsuba tile {tile} N={n_mod}: no cluster fits")
+        for name, info_of, n_mods in (("fp8_karatsuba", fp8_cluster_info, FUSED_COMPLEX_N),
+                                      ("fp8_mod_gemm", fp8_mod_cluster_info, FUSED_REAL_N)):
+            rec = self.record[name]["clusters"] = {}
+            for tile in self.tiles_of[name]:
+                for n_mod in n_mods:
+                    info = info_of(n_mod, tile)
+                    rec[f"{tile_label(tile)} N={n_mod}"] = info
+                    raw = f", {info['raw_stages']} raw stage(s)" if "raw_stages" in info else ""
+                    print(f"  {name} tile {tile_label(tile)} N={n_mod}: cluster "
+                          f"{info['cluster'][0]}x{info['cluster'][1]} (m x n), at most "
+                          f"{info['max_active_clusters']} clusters at once, {info['smem_bytes']} B of "
+                          f"shared memory a block, {info['stages']} stage(s){raw}", flush=True)
+                    if info["max_active_clusters"] < 1:
+                        raise AssertionError(f"{name} tile {tile} N={n_mod}: no cluster fits")
 
     def load_paths(self, name):
-        """A Karatsuba kernel with two load paths (`fp8_karatsuba`,
-        `karatsuba_fused`) on both, every tile, bitwise against its plain
-        version (the e4m3 one also against the int8 kernel), with and
+        """A kernel with two load paths (`fp8_karatsuba`, `karatsuba_fused`,
+        `fp8_mod_gemm`) on both, every tile, bitwise against its plain
+        version (the e4m3 ones also against the int8 kernel), with and
         without carry: RAGGED (k and n off multiples of 16: the kernel's
-        threads load from global memory) at N = 7, 14 and 21, and
-        ALIGNED_RAGGED (TMA, ragged edges) at N = 14.  The wrapper's counts
-        show which path each launch took."""
+        threads load from global memory) at N = 7, 14 and 21 (real: 8, 16,
+        21), and ALIGNED_RAGGED (TMA, ragged edges) at N = 14 (real: 8).
+        The real one also at ALIGNED_RAGGED on views 1 byte into their
+        storage (not 16-byte aligned: global loads, byte by byte).  The
+        wrapper's counts show which path each launch took."""
         from repro_torch.core.moduli import make_crt_context
 
-        _, _, kf, _ = self.mods
+        _, ig, kf, _ = self.mods
         f8 = self.f8
-        wrapper, plain = {
-            "fp8_karatsuba": (f8.fp8_karatsuba_mod_gemm_batched, f8.fp8_karatsuba_mod_gemm_plain),
-            "karatsuba_fused": (kf.karatsuba_mod_gemm_batched, kf.karatsuba_mod_gemm_plain),
+        wrapper, plain, int8_of = {
+            "fp8_karatsuba": (f8.fp8_karatsuba_mod_gemm_batched, f8.fp8_karatsuba_mod_gemm_plain,
+                              kf.karatsuba_mod_gemm_batched),
+            "karatsuba_fused": (kf.karatsuba_mod_gemm_batched, kf.karatsuba_mod_gemm_plain, None),
+            "fp8_mod_gemm": (f8.fp8_mod_gemm_batched, f8.fp8_mod_gemm_plain, ig.int8_mod_gemm_batched),
         }[name]
+        real = name == "fp8_mod_gemm"
+        cases = [(RAGGED, FUSED_REAL_N if real else FUSED_COMPLEX_N, False, 0),
+                 (ALIGNED_RAGGED, (8,) if real else (14,), True, 0)]
+        if real:
+            cases.append((ALIGNED_RAGGED, (8,), False, 1))
         rec = self.record[name]["paths"] = {}
-        for shape, n_mods, tma in ((RAGGED, FUSED_COMPLEX_N, False), (ALIGNED_RAGGED, (14,), True)):
+        for shape, n_mods, tma, offset in cases:
             m, k, n = shape
             for n_mod in n_mods:
                 mods = make_crt_context(n_mod).moduli
-                ops = [self.residues(mods, s) for s in ((m, k), (m, k), (k, n), (k, n))]
-                carry = (self.residues(mods, (m, n)), self.residues(mods, (m, n)))
+                shapes = ((m, k), (k, n)) if real else ((m, k), (m, k), (k, n), (k, n))
+                ops = [self.residues(mods, s, offset=offset) for s in shapes]
+                carry = self.residues(mods, (m, n))
+                if not real:
+                    carry = (carry, self.residues(mods, (m, n)))
                 int8 = None
-                if name == "fp8_karatsuba":
-                    int8 = {None: kf.karatsuba_mod_gemm_batched(*ops, moduli=mods),
-                            "carry": kf.karatsuba_mod_gemm_batched(*ops, moduli=mods, carry=carry)}
+                if int8_of is not None:
+                    int8 = {None: int8_of(*ops, moduli=mods), "carry": int8_of(*ops, moduli=mods, carry=carry)}
                 for tile in self.tiles_of[name]:
                     before = (wrapper.launches, wrapper.tma_launches)
                     for c in (None, carry):
@@ -489,6 +526,8 @@ class KernelChecks:
                     launched = wrapper.launches - before[0]
                     by_tma = wrapper.tma_launches - before[1]
                     label = f"{m}x{k}x{n} N={n_mod} tile {tile_label(tile)}"
+                    if offset:
+                        label += f", views {offset} byte(s) into their storage"
                     rec[label] = {"launches": launched, "tma_launches": by_tma}
                     print(f"  {name} {label}: == plain{' == int8' if int8 else ''} with and without carry, "
                           f"bitwise; {launched} launches, {by_tma} of them by TMA", flush=True)
@@ -708,6 +747,88 @@ class KernelChecks:
         print(f"  {name}: torch._scaled_mm over the same {len(prods)} e4m3 digit products "
               f"(product-only yardstick) ms={ms:.4f}", flush=True)
 
+    def residue_cast_cases(self):
+        """The residue cast against its plain version, bitwise: both scale
+        axes, S = 1 and 2 (and a 2-D input), n_limbs 1-4 (N = 2, 8, 14, 20),
+        at a ragged odd k (the scalar path), at a k that is a multiple of 4
+        (the vector path), on an input view 4 bytes into its storage and on
+        scale views 4 bytes into theirs (not 16-byte aligned: the scalar
+        path), and on one 16 bytes in (aligned again: the vector path).
+        Then a modulus outside odd 5..255 must be refused by the wrapper
+        and by the C entry, with no launch and no fallback."""
+        from repro_torch.core import scaling
+        from repro_torch.core.moduli import make_crt_context
+        from repro_torch.core.plan import n_limbs_for_ctx
+        from repro_torch.kernels.common import limb_radix_f32, split_scale_exponent
+
+        rc = self.mods[0]
+
+        def offset_view(x, floats):
+            buf = torch.empty(x.numel() + floats, dtype=x.dtype, device=x.device)
+            view = buf[floats:].view(x.shape)
+            view.copy_(x)
+            return view
+
+        limbs_seen = set()
+        for n_mod in (2, 8, 14, 20):
+            ctx = make_crt_context(n_mod)
+            nl = n_limbs_for_ctx(ctx)
+            limbs_seen.add(nl)
+            for stack in (1, 2):
+                dtype = np.complex64 if stack == 2 else np.float32
+                for m, k in ((257, 1001), (64, 1024)):
+                    x = torch.from_numpy(phi_matrix(self.rng, (m, k), PHI, dtype)).to(self.dev)
+                    y = torch.from_numpy(phi_matrix(self.rng, (k, 16), PHI, dtype)).to(self.dev)
+                    w = torch.from_numpy(phi_matrix(self.rng, (16, m), PHI, dtype)).to(self.dev)
+                    if stack == 2:
+                        e_rows = scaling.scale_fast_complex(x.real, x.imag, y.real, y.imag, ctx)[0]
+                        e_cols = scaling.scale_fast_complex(w.real, w.imag, x.real, x.imag, ctx)[1]
+                        xs = torch.stack([x.real, x.imag]).float()
+                    else:
+                        e_rows = scaling.scale_fast_real(x, y, ctx)[0]
+                        e_cols = scaling.scale_fast_real(w, x, ctx)[1]
+                        xs = x.float()[None]
+                    for axis, e in ((0, e_rows), (1, e_cols)):
+                        s1, s2 = split_scale_exponent(e)
+                        kw = dict(moduli=ctx.moduli, n_limbs=nl, scale_axis=axis)
+                        variants = {"": (xs, s1, s2), "input 4 B in": (offset_view(xs, 1), s1, s2),
+                                    "input 16 B in": (offset_view(xs, 4), s1, s2)}
+                        if axis == 1:
+                            variants["scales 4 B in"] = (xs, offset_view(s1, 1), offset_view(s2, 1))
+                        if stack == 1:
+                            variants["2-D"] = (xs[0], s1, s2)
+                        for xv, v1, v2 in variants.values():
+                            x3 = xv if xv.ndim == 3 else xv[None]
+                            want = rc.residue_cast_plain(x3, v1, v2, **kw)
+                            self.compare("residue_cast", lambda: rc.residue_cast(xv, v1, v2, **kw),
+                                         lambda: want if xv.ndim == 3 else want[0])
+                    print(f"  residue_cast S={stack} {m}x{k} N={n_mod} n_limbs={nl}: == plain for both scale "
+                          f"axes, on aligned and offset views, bitwise", flush=True)
+        if limbs_seen != {1, 2, 3, 4}:
+            raise AssertionError(f"residue_cast checks covered n_limbs {sorted(limbs_seen)}, expected 1-4")
+        x = torch.from_numpy(phi_matrix(self.rng, (64, 64), PHI, np.float32)).to(self.dev)[None]
+        one = torch.ones(64, dtype=torch.float32, device=self.dev)
+        before = rc.residue_cast.launches
+        for bad in ((4,), (3,), (257,), (255, 254)):
+            try:
+                rc.residue_cast(x, one, one, moduli=bad, n_limbs=1)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"residue_cast: moduli {bad} were not refused on the card")
+            mods = np.ascontiguousarray(bad, dtype=np.int32)
+            radix = np.ascontiguousarray(limb_radix_f32(bad, 1))
+            out = torch.empty((1, len(bad), 64, 64), dtype=torch.int8, device=self.dev)
+            status = rc._entry()(x.data_ptr(), one.data_ptr(), one.data_ptr(), out.data_ptr(), 1, 64, 64, 0,
+                                 len(bad), 1, mods.ctypes.data, radix.ctypes.data,
+                                 torch.cuda.current_stream().cuda_stream)
+            if status == 0:
+                raise AssertionError(f"residue_cast: the C entry launched on moduli {bad}")
+        if rc.residue_cast.launches != before:
+            raise AssertionError("residue_cast: a refused modulus was counted as a launch")
+        print("  residue_cast: moduli 4, 3, 257 and (255, 254) refused by the wrapper (ValueError) and by "
+              "the C entry (cudaErrorInvalidValue)", flush=True)
+
     def fp8_worst_case(self):
         """Both e4m3 kernels at k = FP8_K_CHUNK_LIMIT, m = n = 128, N = 8, on
         planes of -120 (hi = -8, lo = 8: the largest digit product in every
@@ -742,10 +863,17 @@ class KernelChecks:
                               kf.karatsuba_mod_gemm_batched(a, za, b, zb, moduli=mods), what)
             print(f"  fp8 {what}: == plain == int8, bitwise", flush=True)
 
-    def residues(self, moduli, shape):
-        """Random canonical residue planes on the card."""
+    def residues(self, moduli, shape, offset=0):
+        """Random canonical residue planes on the card; with `offset`, a
+        contiguous view that many bytes into its storage."""
         planes = [self.rng.integers(-((p - 1) // 2), (p - 1) // 2 + 1, size=shape) for p in moduli]
-        return torch.from_numpy(np.stack(planes).astype(np.int8)).to(self.dev)
+        x = torch.from_numpy(np.stack(planes).astype(np.int8)).to(self.dev)
+        if not offset:
+            return x
+        buf = torch.empty(x.numel() + offset, dtype=torch.int8, device=self.dev)
+        view = buf[offset:].view(x.shape)
+        view.copy_(x)
+        return view
 
     def int_mm_yardstick(self, name, planes):
         """torch._int_mm over the same int8 (m,k)x(k,n) planes: the products
@@ -891,10 +1019,16 @@ class KernelChecks:
         cast_t = None
         if timed:
             numel = s * rows * cols
-            cast_t = (f"S={s} {rows}x{cols} N={n_mod}", numel * (4 + n_mod) + 8 * rows,
-                      numel * (1 + 4 * n_mod * nl), F32_OPS_S, 20)
+            cast_t = (f"S={s} {rows}x{cols} N={n_mod} (A, row scales)", numel * (4 + n_mod) + 8 * rows,
+                      numel * cast_flops(n_mod, nl), F32_OPS_S, 20)
         ares = cast(xa, e_mu, 0, cast_t)
         bres = cast(xb, e_nu, 1)
+        if timed:
+            s1, s2 = split_scale_exponent(e_nu)
+            rec = self.record["residue_cast"]
+            rec["cols_ms"] = cuda_ms(lambda: rc.residue_cast(xb, s1, s2, moduli=mods, n_limbs=nl, scale_axis=1), 20)
+            print(f"  residue_cast S={s} {xb.shape[1]}x{xb.shape[2]} N={n_mod} (B, column scales): "
+                  f"kernel_ms={rec['cols_ms']:.4f}", flush=True)
 
         if complex_:
             arr, ari = ares[0], ares[1]
@@ -1383,7 +1517,9 @@ def main() -> int:
     checks.chain((MAIN, MAIN, MAIN), np.complex128, 14, timed=True)
     checks.tiles()
     checks.load_paths("fp8_karatsuba")
+    checks.load_paths("fp8_mod_gemm")
     checks.load_paths("karatsuba_fused")
+    checks.residue_cast_cases()
     checks.karatsuba_worst_case()
     checks.clusters()
     checks.megakernels((MAIN, MAIN, MAIN), np.float32, 8, chunk_limit=1 << 17, timed=True)
@@ -1411,7 +1547,9 @@ def main() -> int:
     print("phase 3d: fp8 main path", flush=True)
     fp8_counts = fp8_main_path(results, GemmPolicy, linalg, kernels)
     tma["fp8_karatsuba"] = kernels.fp8_mod_gemm.fp8_karatsuba_mod_gemm_batched.tma_launches
-    print(f"  fp8 main-path launches: {fp8_counts} (fp8_karatsuba by TMA: {tma['fp8_karatsuba']})", flush=True)
+    tma["fp8_mod_gemm"] = kernels.fp8_mod_gemm.fp8_mod_gemm_batched.tma_launches
+    print(f"  fp8 main-path launches: {fp8_counts} (by TMA: fp8_karatsuba {tma['fp8_karatsuba']}, "
+          f"fp8_mod_gemm {tma['fp8_mod_gemm']})", flush=True)
     results = [r for r in results if r["size"] == MAIN]
     torch.cuda.empty_cache()
 
@@ -1449,6 +1587,7 @@ def main() -> int:
             "int_mm_ms": r.get("int_mm_ms"),
             "scaled_mm_ms": r.get("scaled_mm_ms"),
             "kernel_path_ms": r.get("kernel_path_ms"),
+            "cols_ms": r.get("cols_ms"),
             "clusters": r.get("clusters"),
             "f32": r.get("f32"),
             "max_abs_err_by_type": r.get("max_abs_err_by_type"),

@@ -129,3 +129,22 @@ def cluster_launch_info(name: str, tile, n_mod: int, n_fields: int) -> list[int]
     info = (ctypes.c_int * n_fields)()
     check_launch(name, fn(*tile, int(n_mod), info))
     return list(info)
+
+
+def uses_tma(name: str, ar, ai, br, bi) -> bool:
+    """Whether the TMA kernel of source `name` (`karatsuba_fused`,
+    `fp8_karatsuba`, or `fp8_mod_gemm`, which passes its one A and one B
+    twice) loads these (card) operands by TMA: the rule of
+    `csrc/hopper.cuh`, read through the C entry `repro_uses_tma` that each
+    of those sources defines (k and n multiples of 16, every operand
+    16-byte aligned), which shape and alignment alone decide."""
+    return bool(_uses_tma_entry(name)(ar.data_ptr(), ai.data_ptr(), br.data_ptr(), bi.data_ptr(),
+                                      br.shape[-1], ar.shape[-1]))
+
+
+@functools.cache
+def _uses_tma_entry(name: str):
+    fn = library(name).repro_uses_tma
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    return fn

@@ -184,7 +184,7 @@ COMPILED_TILES = {
     ("kernel", "complex"): ((64, 128, 64), (64, 64, 64), (64, 64, 128)),
     ("fused", "real"): ((64, 64, 64), (128, 64, 64)),
     ("fused", "complex"): ((64, 64, 64), (64, 32, 64)),
-    ("fp8", "real"): ((128, 64, 64), (64, 64, 64)),
+    ("fp8", "real"): ((128, 64, 64), (128, 64, 128)),
     ("fp8", "complex"): ((64, 64, 64), (64, 64, 128)),
 }
 

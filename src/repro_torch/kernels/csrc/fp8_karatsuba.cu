@@ -56,8 +56,8 @@
 //    not 16-byte aligned) take the second instantiation, in which the
 //    split threads load their shares from global memory themselves (4-byte
 //    words where k, n and the pointers allow it, else bytes).  Which one a
-//    launch takes depends on shape and alignment alone
-//    (`fp8_karatsuba_uses_tma`); everything after the load is the same.
+//    launch takes depends on shape and alignment alone (hopper.cuh's
+//    `uses_tma`); everything after the load is the same.
 //
 // The accumulation rule.  Hopper's fp8 tensor-core sum keeps only about 14
 // bits (arXiv:2412.19437, 3.3.2), so no wgmma chain may sum past 2^12.  A
@@ -120,15 +120,6 @@ struct Layout {
   static_assert(BYTES <= SMEM_MAX, "shared memory");
 };
 
-// Byte offset of (row, byte col) in a [rows][BK] tile in the swizzle that
-// TMA and wgmma name for BK-byte rows: the 16-byte chunk index XOR bits of
-// the row (64 bytes: row / 2 mod 4; 128 bytes: row mod 8).
-template <int BK>
-__device__ __forceinline__ int swizzled(int row, int col) {
-  const int x = BK == 128 ? (row & 7) : ((row >> 1) & 3);
-  return row * BK + (((col >> 4) ^ x) << 4) + (col & 15);
-}
-
 struct ModParams {
   int p[REPRO_MAX_MODULI];
 };
@@ -141,12 +132,6 @@ struct Operands {
 };
 
 // ---- the digit split, in f16x2 (every step exact; fp8_tiles.cuh) -------------
-
-__device__ __forceinline__ uint32_t hfma2(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t d;
-  asm("fma.rn.f16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  return d;
-}
 
 // 1.0 where a > b (a < b), else 0.0, per half
 __device__ __forceinline__ uint32_t hgt2(uint32_t a, uint32_t b) {
@@ -172,16 +157,6 @@ __device__ __forceinline__ uint32_t half2_of(int v) {
 struct HalfMod {
   uint32_t p, neg_p, half, neg_half;
 };
-
-// The hi and lo e4m3 digit pairs of two f16 integers |r| <= 255: hi =
-// round(r / 16), half to even (r / 16 exact; + 1536 rounds to the integer,
-// 1536 even; - 1536 exact), lo = r - 16 hi (exact).
-__device__ __forceinline__ void digits2(uint32_t r, uint32_t& hi, uint32_t& lo) {
-  constexpr uint32_t kSixteenth = 0x2C002C00u, k1536 = 0x66006600u, kNeg16 = 0xCC00CC00u;
-  const uint32_t d = hsub2(hfma2(r, kSixteenth, k1536), k1536);
-  hi = e4m3x2(d);
-  lo = e4m3x2(hfma2(d, kNeg16, r));
-}
 
 // Split a word of four real residues x and the matching imaginary ones y
 // (k-contiguous) into out[2 g + d]: operand g (0: x, 1: y, 2: the sum (x + y)
@@ -212,52 +187,8 @@ __device__ __forceinline__ void split_pair(uint32_t x, uint32_t y, const HalfMod
   for (int q = 0; q < 6; ++q) out[q] = h[q][0] | (h[q][1] << 16);
 }
 
-// Four bytes at src, of which the first `valid` exist (zeros for the rest);
-// one 4-byte load when `vec` and all four exist.
-__device__ __forceinline__ uint32_t load_word(const int8_t* src, int valid, bool vec) {
-  if (valid <= 0) return 0u;
-  if (vec && valid >= 4) return *reinterpret_cast<const uint32_t*>(src);
-  uint32_t w = 0;
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    if (b < valid) w |= static_cast<uint32_t>(static_cast<uint8_t>(src[b])) << (8 * b);
-  }
-  return w;
-}
-
-__device__ __forceinline__ uint32_t ld_shared(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
-  return v;
-}
-
-__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v0, uint32_t v1) {
-  asm volatile("st.shared.v2.u32 [%0], {%1, %2};\n" ::"r"(addr), "r"(v0), "r"(v1) : "memory");
-}
-
 // the split warpgroup's own barrier (named barrier 2)
 __device__ __forceinline__ void split_barrier() { asm volatile("bar.sync 2, 128;" ::: "memory"); }
-
-// D = A B (scale_d = 0) or D += A B (1) on one m64n64k32 e4m3 step: A and B
-// from shared memory, both K-major (8-bit types take no transpose).
-__device__ __forceinline__ void wgmma_e4m3(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.f32.e4m3.e4m3 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
-        "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
 
 template <int BK, int ST, bool TMA>
 __global__ void __launch_bounds__(THREADS, 1) fp8_karatsuba_kernel(
@@ -385,10 +316,10 @@ __global__ void __launch_bounds__(THREADS, 1) fp8_karatsuba_kernel(
     for (int j = 0; j < S; ++j) {
       const int s = j % ST;
       const uint32_t stage = s * L::STAGE;
-      if (tid == 0) {
+      if (TMA && tid == 0) {
         // keep slices j .. j + RST - 1 in flight: the slot of slice j - 1 was
         // read by every split thread before the barrier that ended it
-        for (; TMA && next < S && next < j + L::RST; ++next) {
+        for (; next < S && next < j + L::RST; ++next) {
           const int r = next % L::RST;
           const uint32_t slot = raw0 + r * L::RAW_STAGE;
           mbar_expect_tx(raw_full(r), L::RAW_STAGE);
@@ -397,12 +328,17 @@ __global__ void __launch_bounds__(THREADS, 1) fp8_karatsuba_kernel(
           tma_load(slot + 2 * L::RAW_A, tm_br, raw_full(r), n0 + b_col0, next * BK, plane);
           tma_load(slot + 2 * L::RAW_A + L::RAW_B, tm_bi, raw_full(r), n0 + b_col0, next * BK, plane);
         }
-        // every block that reads stage s is done with slice j - ST (a fresh
-        // barrier passes the wait on parity 1)
-        mbar_wait_cluster(dig_empty(s), ((j / ST) & 1) ^ 1);
       }
-      split_barrier();
+      // Every split thread waits itself until every block that reads stage s
+      // is done with slice j - ST (a fresh barrier passes the wait on parity
+      // 1), so each thread's own wait orders its writes into the stage.  A
+      // named barrier after thread 0's wait alone would not: bar.sync counts
+      // whole warps, and after a branch that only thread 0 takes it can let
+      // lanes 1-31 of warp 0 through while thread 0 still waits (a
+      // write-after-read race on the stage with the peers' product warps).
+      mbar_wait_cluster(dig_empty(s), ((j / ST) & 1) ^ 1);
       split(j);  // this block's share, into its own stage s
+      __syncwarp();  // converge each warp (its lanes leave the waits one by one) before the named barrier
       split_barrier();
       if (tid == 0) {
         // this block's share is written; the peers' shares of the slice are
@@ -538,52 +474,13 @@ __global__ void __launch_bounds__(THREADS, 1) fp8_karatsuba_kernel(
   cluster_wait();
 }
 
-bool aligned(const void* p, uintptr_t to) { return reinterpret_cast<uintptr_t>(p) % to == 0; }
-
-// TMA maps an operand when its rows are a multiple of 16 bytes apart and its
-// base is 16-byte aligned (A rows are k bytes, B rows n bytes).
-bool uses_tma(const void* ar, const void* ai, const void* br, const void* bi, int n, int k) {
-  return k > 0 && k % 16 == 0 && n % 16 == 0 && aligned(ar, 16) && aligned(ai, 16) && aligned(br, 16) &&
-         aligned(bi, 16);
-}
-
-// The 3-D tensor map (inner, outer, planes) of an int8 stack, box (bi, bo, 1),
-// unswizzled; boxes past the edge read zeros.
-bool tensor_map(CUtensorMap* map, const void* ptr, int inner, int outer, int planes, int box_inner,
-                int box_outer) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer),
-                              static_cast<cuuint64_t>(planes)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(inner),
-                                 static_cast<cuuint64_t>(inner) * static_cast<cuuint64_t>(outer)};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner), static_cast<cuuint32_t>(box_outer), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // The launch configuration: the grid padded to whole CM x CN clusters.
 template <int BK, int ST, bool TMA>
 cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& cluster, int m, int n, int n_mod,
                       cudaStream_t stream) {
-  using L = Layout<BK, ST>;
-  const cudaError_t err = cudaFuncSetAttribute(fp8_karatsuba_kernel<BK, ST, TMA>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
-  const int gx = (n + BN - 1) / BN, gy = (m + BM - 1) / BM;
-  cfg = cudaLaunchConfig_t{};
-  cfg.gridDim = dim3((gx + CN - 1) / CN * CN, (gy + CM - 1) / CM * CM, n_mod);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = L::BYTES;
-  cfg.stream = stream;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = CN;
-  cluster.val.clusterDim.y = CM;
-  cluster.val.clusterDim.z = 1;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = 1;
-  return err;
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, n_mod);
+  return cluster_launch_config(cfg, cluster, fp8_karatsuba_kernel<BK, ST, TMA>, grid, THREADS,
+                               Layout<BK, ST>::BYTES, CN, CM, stream);
 }
 
 template <int BK, int ST, bool TMA>
@@ -591,10 +488,11 @@ int launch_path(const Operands& op, int n_mod, int m, int n, int k, const ModPar
   using L = Layout<BK, ST>;
   CUtensorMap maps[4] = {};
   if (TMA) {
-    if (!tensor_map(&maps[0], op.ar, k, m, n_mod, BK, L::A_ROWS) ||
-        !tensor_map(&maps[1], op.ai, k, m, n_mod, BK, L::A_ROWS) ||
-        !tensor_map(&maps[2], op.br, n, k, n_mod, L::B_COLS, BK) ||
-        !tensor_map(&maps[3], op.bi, n, k, n_mod, L::B_COLS, BK)) {
+    constexpr CUtensorMapSwizzle none = CU_TENSOR_MAP_SWIZZLE_NONE;
+    if (!tensor_map(&maps[0], op.ar, k, m, n_mod, BK, L::A_ROWS, none) ||
+        !tensor_map(&maps[1], op.ai, k, m, n_mod, BK, L::A_ROWS, none) ||
+        !tensor_map(&maps[2], op.br, n, k, n_mod, L::B_COLS, BK, none) ||
+        !tensor_map(&maps[3], op.bi, n, k, n_mod, L::B_COLS, BK, none)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -636,18 +534,12 @@ int cluster_info_of(int n_mod, int* info) {
 
 }  // namespace
 
+REPRO_USES_TMA_ENTRY
+
 // The tiles: REPRO_TILE(BM, BN, BK, digit stages); the first is the default.
 #define REPRO_TILES \
   REPRO_TILE(64, 64, 64, 3) \
   REPRO_TILE(64, 64, 128, 2)
-
-// Whether a launch on these operands takes the TMA path (1) or the one in
-// which the split threads load from global memory (0): shape and alignment
-// alone decide.
-extern "C" int fp8_karatsuba_uses_tma(const void* ar, const void* ai, const void* br, const void* bi, int n,
-                                      int k) {
-  return uses_tma(ar, ai, br, bi, n, k) ? 1 : 0;
-}
 
 extern "C" int fp8_karatsuba_launch(const void* ar, const void* ai, const void* br,
                                     const void* bi, const void* carry_r, const void* carry_i,

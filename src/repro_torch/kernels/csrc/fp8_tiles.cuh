@@ -1,28 +1,27 @@
-// e4m3 machinery of the fp8 residue-GEMM kernel fp8_mod_gemm.cu: the
-// balanced base-16 digit split of int8 residues into e4m3 bytes while a
-// tile is staged, and the three exact digit products of one m16n8k32 step.
-// fp8_karatsuba.cu shares the f16x2 arithmetic and the e4m3 pair
-// conversion, and splits by the same rule.
+// e4m3 machinery of the fp8 residue-GEMM kernels fp8_mod_gemm.cu and
+// fp8_karatsuba.cu: the balanced base-16 digit split of int8 residues into
+// e4m3 bytes, in f16x2 arithmetic, and the wgmma e4m3 step the kernels sum
+// the digit products with.
 //
 // Digits.  A residue r (|r| <= 127) is r = 16 hi + lo with hi = round(r/16),
 // half to even, and lo = r - 16 hi: |hi|, |lo| <= 8, so each digit has at
 // most 4 significant bits and is exact in e4m3 (the TPU kernel's `_digits`,
 // src/repro/kernels/fp8_mod_gemm.py:76).  The split runs in f16x2, where
 // every step is exact: the byte u = r + 128 becomes the half 1024 + u
-// (exponent byte 0x64, ulp 1), minus 1152 gives r; r / 16 is exact; adding
-// 1536 (ulp 1 there, 1536 even) rounds to the nearest integer, half to even;
-// subtracting 1536 and forming r - 16 hi are exact.  `cvt...e4m3x2.f16x2`
-// then packs two digits.  Both operands are split on k-contiguous words,
-// the A rows as loaded and the B columns after their transpose, so the
-// byte order within a word is the same for A and B and any fixed order of
-// the packed pair leaves every dot product unchanged.
+// (exponent byte 0x64, ulp 1), minus 1152 gives r; r / 16 is exact and
+// adding 1536 to it (one fma; ulp 1 there, 1536 even) rounds to the nearest
+// integer, half to even; subtracting 1536 and forming r - 16 hi (one fma)
+// are exact.  `cvt...e4m3x2.f16x2` then packs two digits.  Both operands
+// are split on k-contiguous words, the A rows as loaded and the B columns
+// after their transpose, so the byte order within a word is the same for A
+// and B and any fixed order of the packed pair leaves every dot product
+// unchanged.
 //
-// Products and the accumulation hazard.  Hopper's fp8 tensor-core sum keeps
-// only about 14 bits (DeepSeek-V3 report, arXiv:2412.19437, 3.3.2), so the
-// C operand never carries a long K range.  Each m16n8k32 digit product
-// starts from C = 0 and is at most 32 * 8 * 8 = 2^11; the cross term X
-// chains its two products, ah.bl then al.bh on that C, to at most 2^12.
-// The kernels add these exact integers into registers with ordinary adds.
+// The accumulation hazard.  Hopper's fp8 tensor-core sum keeps only about
+// 14 bits (DeepSeek-V3 report, arXiv:2412.19437, 3.3.2): a digit product is
+// at most 8 * 8 = 64 and a k32 step at most 2^11, so the kernels sum the
+// digit products on the tensor cores in chains of at most 2^12, each from
+// zero, and add the chains' exact integers into f32 registers with FADDs.
 #pragma once
 
 #include "gemm_tiles.cuh"
@@ -40,9 +39,9 @@ __device__ __forceinline__ uint32_t hsub2(uint32_t a, uint32_t b) {
   return d;
 }
 
-__device__ __forceinline__ uint32_t hmul2(uint32_t a, uint32_t b) {
+__device__ __forceinline__ uint32_t hfma2(uint32_t a, uint32_t b, uint32_t c) {
   uint32_t d;
-  asm("mul.rn.f16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  asm("fma.rn.f16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
   return d;
 }
 
@@ -53,70 +52,41 @@ __device__ __forceinline__ uint32_t e4m3x2(uint32_t h) {
   return d;
 }
 
+// The hi and lo e4m3 digit pairs of two f16 integers |r| <= 255: hi =
+// round(r / 16), half to even (r / 16 exact; + 1536 rounds to the integer,
+// 1536 even; - 1536 exact), lo = r - 16 hi (exact).
+__device__ __forceinline__ void digits2(uint32_t r, uint32_t& hi, uint32_t& lo) {
+  constexpr uint32_t kSixteenth = 0x2C002C00u, k1536 = 0x66006600u, kNeg16 = 0xCC00CC00u;
+  const uint32_t d = hsub2(hfma2(r, kSixteenth, k1536), k1536);
+  hi = e4m3x2(d);
+  lo = e4m3x2(hfma2(d, kNeg16, r));
+}
+
 // The hi and lo e4m3 digit words of a word of four int8 residues.
 __device__ __forceinline__ void split_digits(uint32_t w, uint32_t& hi, uint32_t& lo) {
   constexpr uint32_t kMagic = 0x64646464u;  // exponent bytes of 1024 + u
-  constexpr uint32_t k1152 = 0x64806480u, kSixteenth = 0x2C002C00u;
-  constexpr uint32_t k1536 = 0x66006600u, k16 = 0x4C004C00u;
+  constexpr uint32_t k1152 = 0x64806480u;
   const uint32_t u = w ^ 0x80808080u;  // r + 128 per byte
   uint32_t h[2], l[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const uint32_t r = hsub2(__byte_perm(u, kMagic, i ? 0x7362 : 0x5140), k1152);
-    const uint32_t d = hsub2(hadd2(hmul2(r, kSixteenth), k1536), k1536);
-    h[i] = e4m3x2(d);
-    l[i] = e4m3x2(hsub2(r, hmul2(d, k16)));
-  }
+  for (int i = 0; i < 2; ++i) digits2(hsub2(__byte_perm(u, kMagic, i ? 0x7362 : 0x5140), k1152), h[i], l[i]);
   hi = h[0] | (h[1] << 16);
   lo = l[0] | (l[1] << 16);
 }
 
-// Stage 16 k-contiguous bytes of an A row as their hi and lo digits.
-__device__ __forceinline__ void store_a_digits(int8_t* Ah, int8_t* Al, int off, uint4 v) {
-  uint4 h, l;
-  split_digits(v.x, h.x, l.x);
-  split_digits(v.y, h.y, l.y);
-  split_digits(v.z, h.z, l.z);
-  split_digits(v.w, h.w, l.w);
-  *reinterpret_cast<uint4*>(Ah + off) = h;
-  *reinterpret_cast<uint4*>(Al + off) = l;
-}
-
-// Stage a 4(k) x 4(n) B block transposed (as `store_b_block`), as digits.
-template <int BK>
-__device__ __forceinline__ void store_b_digits(int8_t* Bh, int8_t* Bl, const uint32_t (&x)[4],
-                                               int n, int kk) {
-  uint32_t w[4];
-  transpose4x4(x, w);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    uint32_t h, l;
-    split_digits(w[j], h, l);
-    *reinterpret_cast<uint32_t*>(Bh + (n + j) * lds_for(BK) + kk) = h;
-    *reinterpret_cast<uint32_t*>(Bl + (n + j) * lds_for(BK) + kk) = l;
-  }
-}
-
-// d = a (16x32 e4m3, k contiguous) . b (32x8 e4m3, k contiguous) + c in f32.
-__device__ __forceinline__ void mma_e4m3(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1, const float (&c)[4]) {
+// D = A B (scale_d = 0) or D += A B (1) on one m64n64k32 e4m3 step: A and B
+// from shared memory, both K-major (8-bit types take no transpose).
+__device__ __forceinline__ void wgmma_e4m3(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(c[0]), "f"(c[1]),
-        "f"(c[2]), "f"(c[3]));
-}
-
-// The three digit products of one m16n8k32 step, each an exact integer:
-// hh = ah.bh, ll = al.bl (|.| <= 2^11) and x = ah.bl + al.bh (<= 2^12).
-__device__ __forceinline__ void digit_products(float (&hh)[4], float (&x)[4], float (&ll)[4],
-                                               const uint32_t (&ah)[4], const uint32_t (&al)[4],
-                                               const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
-  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
-  float t[4];
-  mma_e4m3(hh, ah, bh[0], bh[1], zero);
-  mma_e4m3(ll, al, bl[0], bl[1], zero);
-  mma_e4m3(t, ah, bl[0], bl[1], zero);
-  mma_e4m3(x, al, bh[0], bh[1], t);
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.f32.e4m3.e4m3 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
+        "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
 }

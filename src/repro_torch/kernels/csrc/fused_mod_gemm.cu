@@ -420,22 +420,9 @@ __global__ void __launch_bounds__(T::THREADS, (min_blocks<T, NMAX>())) fused_mod
 template <class T, int NMAX, bool PREPARED, bool VEC>
 cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& cluster, int m, int n,
                       int n_mod, cudaStream_t stream) {
-  const int smem = smem_bytes<T, NMAX>(n_mod);
-  cudaError_t err = cudaFuncSetAttribute(fused_mod_gemm_kernel<T, NMAX, PREPARED, VEC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const int gx = (n + T::BN - 1) / T::BN, gy = (m + T::BM - 1) / T::BM;
-  cfg = cudaLaunchConfig_t{};
-  cfg.gridDim = dim3((gx + CN - 1) / CN * CN, (gy + CM - 1) / CM * CM);
-  cfg.blockDim = dim3(T::THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = CN;
-  cluster.val.clusterDim.y = CM;
-  cluster.val.clusterDim.z = 1;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = 1;
-  return err;
+  const dim3 grid((n + T::BN - 1) / T::BN, (m + T::BM - 1) / T::BM);
+  return cluster_launch_config(cfg, cluster, fused_mod_gemm_kernel<T, NMAX, PREPARED, VEC>, grid,
+                               T::THREADS, smem_bytes<T, NMAX>(n_mod), CN, CM, stream);
 }
 
 template <class T, int NMAX, bool PREPARED, bool VEC>
@@ -499,16 +486,6 @@ int cluster_info_n(int n_mod, int* info) {
   return cluster_info_of<T, 24>(n_mod, info);
 }
 
-bool aligned(const void* p, uintptr_t to) { return reinterpret_cast<uintptr_t>(p) % to == 0; }
-
-// residue_fma.cuh's exactness argument holds for odd 5 <= p <= 255
-bool moduli_ok(int n_mod, const int* moduli) {
-  for (int l = 0; l < n_mod; ++l) {
-    if (moduli[l] < 5 || moduli[l] > 255 || moduli[l] % 2 == 0) return false;
-  }
-  return true;
-}
-
 }  // namespace
 
 #define REPRO_TILES    \
@@ -526,7 +503,7 @@ extern "C" int fused_mod_gemm_launch(const void* a, const void* sa1, const void*
   GarnerParams gp;
   if (!make_cast_params(cp, n_mod, n_limbs, moduli, radix) ||
       !make_garner_params(gp, n_mod, moduli, garner_inv, weights) || chunk_limit < 1 ||
-      !moduli_ok(n_mod, moduli)) {
+      !fma_moduli_ok(n_mod, moduli)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (m == 0 || n == 0) return 0;

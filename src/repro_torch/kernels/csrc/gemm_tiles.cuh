@@ -1,10 +1,11 @@
-// Tile machinery shared by the residue-GEMM kernels (int8_mod_gemm.cu,
-// karatsuba_fused.cu, the two megakernels, and through fp8_tiles.cuh the two
-// e4m3 kernels): the block tile shape, global -> register -> shared staging
-// of int8 tiles, the 8-bit fragment loads, and the tensor-core product of an
-// int8 warp tile by mma.sync.
+// Tile machinery of the mma.sync residue-GEMM kernels (int8_mod_gemm.cu and
+// the two megakernels): the block tile shape, global -> register -> shared
+// staging of int8 tiles, the 8-bit fragment loads, and the tensor-core
+// product of an int8 warp tile by mma.sync.  The wgmma kernels
+// (karatsuba_fused.cu, and through fp8_tiles.cuh the two e4m3 kernels) take
+// its 4 x 4 byte transpose.
 //
-// The block tile.  Every GEMM kernel is a template on `Tile<BM, BN, BK,
+// The block tile.  Each of those kernels is a template on `Tile<BM, BN, BK,
 // WARPS_N>`: a block of 256 threads (eight warps, WARPS_M x WARPS_N) owns a
 // BM x BN output tile and steps over K in BK-deep slices; each warp owns a
 // (BM / WARPS_M) x (BN / WARPS_N) sub-tile of MT x NT m16n8 products.  A

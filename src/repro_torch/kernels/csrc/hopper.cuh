@@ -1,9 +1,13 @@
 // Hopper (sm_90a) primitives shared by the port's warp-specialised kernels
-// (flash_attention.cu, fp8_karatsuba.cu, karatsuba_fused.cu) and its
-// cluster kernels (fused_karatsuba.cu and fused_mod_gemm.cu through
-// residue_fma.cuh): mbarriers, TMA loads and
-// the tensor-map encoder, wgmma shared-memory descriptors and the wgmma
-// fence / commit / wait, and the thread-block-cluster barrier and
+// (flash_attention.cu, fp8_karatsuba.cu, fp8_mod_gemm.cu,
+// karatsuba_fused.cu) and its cluster kernels (fused_karatsuba.cu and
+// fused_mod_gemm.cu through residue_fma.cuh): mbarriers, TMA loads, the
+// tensor-map encoder and the 3-D int8 tensor map with its TMA rule
+// (`uses_tma`, and `REPRO_USES_TMA_ENTRY`, its C entry), wgmma shared-memory
+// descriptors, the swizzled byte layout they name and the wgmma fence /
+// commit / wait, masked 4-byte global loads, shared-memory loads and
+// stores by address, and the
+// thread-block-cluster barrier, launch configuration and
 // distributed-shared-memory stores.
 #pragma once
 
@@ -116,6 +120,85 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+inline bool aligned(const void* p, uintptr_t to) { return reinterpret_cast<uintptr_t>(p) % to == 0; }
+
+// The TMA rule of the int8 GEMM kernels that load by TMA: an operand is
+// mapped when its rows are a multiple of 16 bytes apart and its base is
+// 16-byte aligned (A rows are k bytes, B rows n bytes).  Shape and alignment
+// alone decide; a launch that fails it takes the kernel's global-load path.
+inline bool uses_tma(const void* a0, const void* a1, const void* b0, const void* b1, int n, int k) {
+  return k > 0 && k % 16 == 0 && n % 16 == 0 && aligned(a0, 16) && aligned(a1, 16) && aligned(b0, 16) &&
+         aligned(b1, 16);
+}
+
+// The 3-D tensor map (inner, outer, planes) of an int8 stack, box (bi, bo, 1)
+// in the given swizzle; boxes past the edge read zeros.
+inline bool tensor_map(CUtensorMap* map, const void* ptr, int inner, int outer, int planes, int box_inner,
+                       int box_outer, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(inner),
+                                 static_cast<cuuint64_t>(inner) * static_cast<cuuint64_t>(outer)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner), static_cast<cuuint32_t>(box_outer), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The C entry `repro_uses_tma` of the rule, which each kernel source that
+// loads by TMA expands once (fp8_karatsuba.cu, fp8_mod_gemm.cu,
+// karatsuba_fused.cu; the wrappers read it through `build.uses_tma`): whether
+// a launch on operands (a0, a1) (m, k) and (b0, b1) (k, n) takes the TMA path
+// (1) or the global-load path (0); a kernel of one A and one B operand passes
+// each twice.
+#define REPRO_USES_TMA_ENTRY                                                                                \
+  extern "C" int repro_uses_tma(const void* a0, const void* a1, const void* b0, const void* b1, int n, int k) { \
+    return uses_tma(a0, a1, b0, b1, n, k) ? 1 : 0;                                                         \
+  }
+
+// Four bytes at src, of which the first `valid` exist (zeros for the rest);
+// one 4-byte load when `vec` and all four exist.
+__device__ __forceinline__ uint32_t load_word(const int8_t* src, int valid, bool vec) {
+  if (valid <= 0) return 0u;
+  if (vec && valid >= 4) return *reinterpret_cast<const uint32_t*>(src);
+  uint32_t w = 0;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    if (b < valid) w |= static_cast<uint32_t>(static_cast<uint8_t>(src[b])) << (8 * b);
+  }
+  return w;
+}
+
+// ---- shared memory by address ------------------------------------------------
+
+__device__ __forceinline__ uint32_t ld_shared(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ uint4 ld_shared4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n" : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v0, uint32_t v1) {
+  asm volatile("st.shared.v2.u32 [%0], {%1, %2};\n" ::"r"(addr), "r"(v0), "r"(v1) : "memory");
+}
+
+__device__ __forceinline__ void st_shared4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
 // ---- wgmma -------------------------------------------------------------------
 
 // wgmma shared-memory matrix descriptor: start address, leading and stride
@@ -124,6 +207,15 @@ inline EncodeTiled encode_tiled() {
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, int layout) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
          static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 | static_cast<uint64_t>(layout) << 62;
+}
+
+// Byte offset of (row, byte col) in a [rows][BK] tile in the swizzle that
+// TMA and wgmma name for BK-byte rows: the 16-byte chunk index XOR bits of
+// the row (64 bytes: row / 2 mod 4; 128 bytes: row mod 8).
+template <int BK>
+__device__ __forceinline__ int swizzled(int row, int col) {
+  const int x = BK == 128 ? (row & 7) : ((row >> 1) & 3);
+  return row * BK + (((col >> 4) ^ x) << 4) + (col & 15);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
@@ -188,4 +280,25 @@ __device__ __forceinline__ void cluster_arrive() {
 
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The launch of `kernel` on `grid` (x along n, y along m) padded to whole
+// cn x cm thread-block clusters, with `smem` bytes of dynamic shared memory;
+// `attr` holds the cluster attribute `cfg` points to.
+template <class Kernel>
+cudaError_t cluster_launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, Kernel kernel, dim3 grid,
+                                  int threads, int smem, int cn, int cm, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3((grid.x + cn - 1) / cn * cn, (grid.y + cm - 1) / cm * cm, grid.z);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cn;
+  attr.val.clusterDim.y = cm;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return err;
 }

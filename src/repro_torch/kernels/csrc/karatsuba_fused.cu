@@ -57,7 +57,7 @@
 //    preparing threads load A and their B share from global memory
 //    themselves (4-byte words where k, n and the pointers allow it, else
 //    bytes) once the stage is free.  Which one a launch takes depends on
-//    shape and alignment alone (`karatsuba_fused_uses_tma`); everything after
+//    shape and alignment alone (hopper.cuh's `uses_tma`); everything after
 //    the load is the same.
 //
 // Epilogue (unchanged): each product warpgroup takes the exact symmetric
@@ -112,15 +112,6 @@ struct Layout {
   static_assert(BYTES <= SMEM_MAX, "shared memory");
 };
 
-// Byte offset of (row, byte col) in a [rows][BK] tile in the swizzle that
-// TMA and wgmma name for BK-byte rows: the 16-byte chunk index XOR bits of
-// the row (64 bytes: row / 2 mod 4; 128 bytes: row mod 8).
-template <int BK>
-__device__ __forceinline__ int swizzled(int row, int col) {
-  const int x = BK == 128 ? (row & 7) : ((row >> 1) & 3);
-  return row * BK + (((col >> 4) ^ x) << 4) + (col & 15);
-}
-
 struct ModParams {
   int p[REPRO_MAX_MODULI];
 };
@@ -172,40 +163,6 @@ __device__ __forceinline__ uint32_t sum_mod_word(uint32_t x, uint32_t y, const S
 __device__ __forceinline__ uint4 sum_mod_chunk(uint4 x, uint4 y, const SumMod& sm) {
   return make_uint4(sum_mod_word(x.x, y.x, sm), sum_mod_word(x.y, y.y, sm), sum_mod_word(x.z, y.z, sm),
                     sum_mod_word(x.w, y.w, sm));
-}
-
-// Four bytes at src, of which the first `valid` exist (zeros for the rest);
-// one 4-byte load when `vec` and all four exist.
-__device__ __forceinline__ uint32_t load_word(const int8_t* src, int valid, bool vec) {
-  if (valid <= 0) return 0u;
-  if (vec && valid >= 4) return *reinterpret_cast<const uint32_t*>(src);
-  uint32_t w = 0;
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    if (b < valid) w |= static_cast<uint32_t>(static_cast<uint8_t>(src[b])) << (8 * b);
-  }
-  return w;
-}
-
-__device__ __forceinline__ uint32_t ld_shared(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
-  return v;
-}
-
-__device__ __forceinline__ uint4 ld_shared4(uint32_t addr) {
-  uint4 v;
-  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n" : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr));
-  return v;
-}
-
-__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ void st_shared4(uint32_t addr, uint4 v) {
-  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
-               : "memory");
 }
 
 // D += A B on one m64n{N}k32 s8 step: A and B from shared memory, both
@@ -516,52 +473,13 @@ __global__ void __launch_bounds__(THREADS, 1) karatsuba_kernel(
   cluster_wait();
 }
 
-bool aligned(const void* p, uintptr_t to) { return reinterpret_cast<uintptr_t>(p) % to == 0; }
-
-// TMA maps an operand when its rows are a multiple of 16 bytes apart and its
-// base is 16-byte aligned (A rows are k bytes, B rows n bytes).
-bool uses_tma(const void* ar, const void* ai, const void* br, const void* bi, int n, int k) {
-  return k > 0 && k % 16 == 0 && n % 16 == 0 && aligned(ar, 16) && aligned(ai, 16) && aligned(br, 16) &&
-         aligned(bi, 16);
-}
-
-// The 3-D tensor map (inner, outer, planes) of an int8 stack, box (bi, bo, 1)
-// in the given swizzle; boxes past the edge read zeros.
-bool tensor_map(CUtensorMap* map, const void* ptr, int inner, int outer, int planes, int box_inner,
-                int box_outer, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer),
-                              static_cast<cuuint64_t>(planes)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(inner),
-                                 static_cast<cuuint64_t>(inner) * static_cast<cuuint64_t>(outer)};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner), static_cast<cuuint32_t>(box_outer), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // The launch configuration: the grid padded to whole CM x CN clusters.
 template <int BN, int BK, int ST, bool TMA>
 cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& cluster, int m, int n, int n_mod,
                       cudaStream_t stream) {
-  using L = Layout<BN, BK, ST>;
-  const cudaError_t err = cudaFuncSetAttribute(karatsuba_kernel<BN, BK, ST, TMA>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
-  const int gx = (n + BN - 1) / BN, gy = (m + BM - 1) / BM;
-  cfg = cudaLaunchConfig_t{};
-  cfg.gridDim = dim3((gx + CN - 1) / CN * CN, (gy + CM - 1) / CM * CM, n_mod);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = L::BYTES;
-  cfg.stream = stream;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = CN;
-  cluster.val.clusterDim.y = CM;
-  cluster.val.clusterDim.z = 1;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = 1;
-  return err;
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, n_mod);
+  return cluster_launch_config(cfg, cluster, karatsuba_kernel<BN, BK, ST, TMA>, grid, THREADS,
+                               Layout<BN, BK, ST>::BYTES, CN, CM, stream);
 }
 
 template <int BN, int BK, int ST, bool TMA>
@@ -595,18 +513,13 @@ int launch(const Operands& op, bool tma, int n_mod, int m, int n, int k, const M
 
 }  // namespace
 
+REPRO_USES_TMA_ENTRY
+
 // The tiles: REPRO_TILE(BM, BN, BK, stages); the first is the default.
 #define REPRO_TILES \
   REPRO_TILE(64, 128, 64, 4) \
   REPRO_TILE(64, 64, 64, 4) \
   REPRO_TILE(64, 64, 128, 3)
-
-// Whether a launch on these operands takes the TMA path (1) or the one in
-// which the preparing threads load from global memory (0): shape and
-// alignment alone decide.
-extern "C" int karatsuba_fused_uses_tma(const void* ar, const void* ai, const void* br, const void* bi, int n, int k) {
-  return uses_tma(ar, ai, br, bi, n, k) ? 1 : 0;
-}
 
 extern "C" int karatsuba_mod_gemm_launch(const void* ar, const void* ai, const void* br,
                                          const void* bi, const void* carry_r,

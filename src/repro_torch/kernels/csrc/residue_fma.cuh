@@ -1,14 +1,15 @@
-// The division-free residue cast of the complex megakernel
-// (fused_karatsuba.cu); it includes hopper.cuh for the thread-block-cluster
-// primitives the megakernel shares its casts through.
+// The division-free residue cast of the residue-cast kernel
+// (residue_cast.cu) and the two megakernels (fused_mod_gemm.cu,
+// fused_karatsuba.cu); it includes hopper.cuh for the thread-block-cluster
+// primitives the megakernels share their casts through.
 //
-// The cast computes what cast_tile.cuh's `cast_residue` computes — the
-// canonical symmetric residue mod p_l of trunc(a * scale), the reference's
-// `common.residue_tiles_f32` (src/repro/kernels/common.py:93) — by another
-// exact route, with no integer division and no conversion per limb:
+// The cast computes the canonical symmetric residue mod p_l of trunc(a *
+// scale), the reference's `common.residue_tiles_f32`
+// (src/repro/kernels/common.py:93), by another exact route, with no integer
+// division and no conversion per limb:
 //
 //   x = trunc(a * scale), peeled into base-2^24 limbs L_i (|L_i| < 2^24), as
-//       in cast_tile.cuh (the same limbs);
+//       the reference peels them (the same limbs);
 //   per limb: q = rint(L * (1/p)), r = L - q p;
 //   acc = sum_i r_i * radix_i;  v = acc - rint(acc * (1/p)) p.
 //
@@ -27,13 +28,22 @@
 //     integer over an odd p is at least 1/(2p) from every half-integer: the
 //     final q is exactly rint(acc/p), and v is the canonical residue,
 //     |v| <= (p-1)/2, with no correction step.
-// The canonical residue is unique, so the cast's bits are cast_residue's,
-// and the reference's.  `tests/test_torch_cast.py` runs this op sequence in
-// numpy, rounding as f32 does, against exact integer residues.
+// The canonical residue is unique, so the cast's bits are the reference's.
+// `tests/test_torch_cast.py` runs this op sequence in numpy, rounding as f32
+// does, against exact integer residues.
 #pragma once
 
 #include "cast_tile.cuh"
 #include "hopper.cuh"
+
+// Whether the route's exactness argument above holds for every modulus:
+// odd 5 <= p <= 255.  The C entries of its kernels reject the rest.
+inline bool fma_moduli_ok(int n_mod, const int* moduli) {
+  for (int l = 0; l < n_mod; ++l) {
+    if (moduli[l] < 5 || moduli[l] > 255 || moduli[l] % 2 == 0) return false;
+  }
+  return true;
+}
 
 // 1.5 * 2^23: the rint shifter above.  For an integer |r| < 2^22 the low
 // byte of the bits of r + kShift is r's two's-complement byte (the stored

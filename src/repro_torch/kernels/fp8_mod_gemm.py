@@ -21,8 +21,12 @@ bitwise the int8 engine's (`int8_mod_gemm_batched`,
 `karatsuba_mod_gemm_batched`).
 
 * `fp8_mod_gemm_batched`: all N planes in one launch, optional carry.  On
-  CUDA tensors it launches `csrc/fp8_mod_gemm.cu`; on CPU tensors it runs
-  `fp8_mod_gemm_plain`.
+  CUDA tensors it launches `csrc/fp8_mod_gemm.cu` (wgmma, in thread-block
+  clusters that share the digit split; `fp8_mod_cluster_info` reports the
+  launch); on CPU tensors it runs `fp8_mod_gemm_plain`.  The kernel loads
+  its operands by TMA under the same rule as the Karatsuba kernels
+  (`build.uses_tma`), and the wrapper counts those launches in
+  `.tma_launches` beside `.launches`.
 * `fp8_karatsuba_mod_gemm_batched`: the D/E/F Karatsuba triple as digit
   products, the sums (AR+AI), (BR+BI) mod p formed in the kernel, the
   CR/CI combine and carries.  On CUDA tensors it launches
@@ -30,7 +34,7 @@ bitwise the int8 engine's (`int8_mod_gemm_batched`,
   the digit split; `fp8_cluster_info` reports the launch); on CPU
   tensors it runs `fp8_karatsuba_mod_gemm_plain`.  The kernel loads its
   operands by TMA where k and n are multiples of 16 and every operand is
-  16-byte aligned (`karatsuba_fused.uses_tma`), else from its own
+  16-byte aligned (`build.uses_tma`), else from its own
   threads; the wrapper counts the TMA launches in `.tma_launches` beside
   `.launches`.
 """
@@ -41,7 +45,7 @@ import torch
 from . import build
 from .common import check_tile, on_card, plane_mod_params, sym_mod_f32, sym_mod_int32_dyn
 from .int8_mod_gemm import launch_mod_gemm
-from .karatsuba_fused import launch_karatsuba, uses_tma
+from .karatsuba_fused import launch_karatsuba
 
 # Per-launch K bound of the f32 digit sums: a k step adds at most 2 * 8 * 8
 # = 128 to X, and f32 integers are exact below 2^24, so k <= 2^17; the
@@ -149,11 +153,13 @@ def fp8_mod_gemm_batched(
     if on_card(*tensors):
         out = launch_mod_gemm("fp8_mod_gemm", a, b, moduli=moduli, carry=carry, tile=tile)
         fp8_mod_gemm_batched.launches += 1
+        fp8_mod_gemm_batched.tma_launches += build.uses_tma("fp8_mod_gemm", a, a, b, b)
         return out
     return fp8_mod_gemm_plain(a, b, moduli=moduli, carry=carry)
 
 
 fp8_mod_gemm_batched.launches = 0
+fp8_mod_gemm_batched.tma_launches = 0  # of them, those that loaded by TMA
 
 
 def fp8_karatsuba_mod_gemm_batched(
@@ -195,13 +201,24 @@ def fp8_karatsuba_mod_gemm_batched(
         out = launch_karatsuba("fp8_karatsuba", "fp8_karatsuba_launch", ar, ai, br, bi,
                                moduli=moduli, carry=carry, tile=tile)
         fp8_karatsuba_mod_gemm_batched.launches += 1
-        fp8_karatsuba_mod_gemm_batched.tma_launches += uses_tma(ar, ai, br, bi, "fp8_karatsuba")
+        fp8_karatsuba_mod_gemm_batched.tma_launches += build.uses_tma("fp8_karatsuba", ar, ai, br, bi)
         return out
     return fp8_karatsuba_mod_gemm_plain(ar, ai, br, bi, moduli=moduli, carry=carry)
 
 
 fp8_karatsuba_mod_gemm_batched.launches = 0
 fp8_karatsuba_mod_gemm_batched.tma_launches = 0  # of them, those that loaded by TMA
+
+
+def fp8_mod_cluster_info(n_mod: int, tile: tuple[int, int, int] | None = None) -> dict:
+    """How the card runs the e4m3 real kernel at `n_mod` planes with
+    `tile`: its thread-block cluster (`cluster`, (CM, CN) blocks along m
+    and n), the most such clusters the card holds at once
+    (`cudaOccupancyMaxActiveClusters`), the shared memory of a block and
+    the stages of its ring.  Needs the card."""
+    cm, cn, clusters, smem, stages = build.cluster_launch_info(
+        "fp8_mod_gemm", check_tile("fp8", "real", tile), n_mod, 5)
+    return {"cluster": (cm, cn), "max_active_clusters": clusters, "smem_bytes": smem, "stages": stages}
 
 
 def fp8_cluster_info(n_mod: int, tile: tuple[int, int, int] | None = None) -> dict:

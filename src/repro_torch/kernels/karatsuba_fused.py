@@ -10,8 +10,9 @@ On CUDA tensors `karatsuba_mod_gemm_batched` launches
 `csrc/karatsuba_fused.cu` (wgmma, in thread-block clusters that share the
 preparation of B); on CPU tensors it runs `karatsuba_mod_gemm_plain`.  The
 kernel loads its operands by TMA where k and n are multiples of 16 and
-every operand is 16-byte aligned (`uses_tma`), else from its own threads;
-the wrapper counts the TMA launches in `.tma_launches` beside `.launches`.
+every operand is 16-byte aligned (`build.uses_tma`), else from its own
+threads; the wrapper counts the TMA launches in `.tma_launches` beside
+`.launches`.
 
 `fused_karatsuba_mod_gemm` is the one-launch complex megakernel (port of
 `repro.kernels.karatsuba_fused.fused_karatsuba_mod_gemm`): the casts of
@@ -142,30 +143,13 @@ def karatsuba_mod_gemm_batched(
         out = launch_karatsuba("karatsuba_fused", "karatsuba_mod_gemm_launch", ar, ai, br, bi,
                                moduli=moduli, carry=carry, tile=tile)
         karatsuba_mod_gemm_batched.launches += 1
-        karatsuba_mod_gemm_batched.tma_launches += uses_tma(ar, ai, br, bi)
+        karatsuba_mod_gemm_batched.tma_launches += build.uses_tma("karatsuba_fused", ar, ai, br, bi)
         return out
     return karatsuba_mod_gemm_plain(ar, ai, br, bi, moduli=moduli, carry=carry)
 
 
 karatsuba_mod_gemm_batched.launches = 0
 karatsuba_mod_gemm_batched.tma_launches = 0  # of them, those that loaded by TMA
-
-
-def uses_tma(ar, ai, br, bi, source: str = "karatsuba_fused") -> bool:
-    """Whether the Karatsuba kernel of `source` (`karatsuba_fused` or
-    `fp8_karatsuba`) loads these (card) operands by TMA: its C entry
-    point's own rule (k and n multiples of 16, every operand 16-byte
-    aligned), which shape and alignment alone decide."""
-    return bool(_uses_tma_entry(source)(ar.data_ptr(), ai.data_ptr(), br.data_ptr(), bi.data_ptr(),
-                                        br.shape[-1], ar.shape[-1]))
-
-
-@functools.cache
-def _uses_tma_entry(source: str):
-    fn = getattr(build.library(source), f"{source}_uses_tma")
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-    fn.restype = ctypes.c_int
-    return fn
 
 
 # --------------------------------------------------------------- megakernel

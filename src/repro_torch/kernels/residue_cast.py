@@ -5,8 +5,11 @@ over the input).  A (S, m, k) input casts S same-shaped matrices sharing one
 scale vector in one launch — the complex pipeline stacks the real and
 imaginary parts of an operand.  2D inputs are treated as S=1 and squeezed.
 
-On a CUDA tensor `residue_cast` launches `csrc/residue_cast.cu`; on a CPU
-tensor it runs `residue_cast_plain`, the same op sequence in PyTorch.
+On a CUDA tensor `residue_cast` launches `csrc/residue_cast.cu`, whose
+division-free residues (`csrc/residue_fma.cuh`) are exact for odd moduli
+5 <= p <= 255: the card path raises on any other modulus, as the kernel's C
+entry does.  On a CPU tensor it runs `residue_cast_plain`, the same op
+sequence in PyTorch, for any modulus.
 """
 from __future__ import annotations
 
@@ -40,6 +43,9 @@ def _entry():
 def _launch(a, scale1, scale2, *, moduli, n_limbs, scale_axis):
     s, m, k = a.shape
     n_mod = len(moduli)
+    bad = [p for p in moduli if not (5 <= p <= 255 and p % 2 == 1)]
+    if bad:
+        raise ValueError(f"residue_cast on the card takes odd moduli 5 <= p <= 255, got {bad}")
     check_tensor("a", a, torch.float32, (s, m, k))
     slen = m if scale_axis == 0 else k
     check_tensor("scale1", scale1, torch.float32, (slen,))

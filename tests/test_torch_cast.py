@@ -1,6 +1,6 @@
-"""The division-free residue cast of the complex megakernel
-(`src/repro_torch/kernels/csrc/residue_fma.cuh`), modelled op by op in
-numpy, and the launch-timing copy's wrapper.
+"""The division-free residue cast of the residue-cast kernel and the
+megakernels (`src/repro_torch/kernels/csrc/residue_fma.cuh`), modelled op by
+op in numpy, and the launch-timing copy's wrapper.
 
 The model rounds where the card rounds: each f32 multiply and add in
 float32 (numpy's float32 arithmetic is IEEE round-to-nearest-even, as the
@@ -14,10 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.moduli import make_crt_context
+from repro_torch.core.moduli import default_moduli, make_crt_context
 from repro_torch.kernels import build
 from repro_torch.kernels import launch_copy as lc
 from repro_torch.kernels.common import limb_radix_f32, residue_tiles_f32
+from repro_torch.kernels.residue_cast import residue_cast, residue_cast_plain
 
 F32 = np.float32
 SHIFT = F32(12582912.0)  # 1.5 * 2^23, the kernel's rint shifter
@@ -133,6 +134,42 @@ def test_division_free_cast_matches_exact_and_plain(n_mod):
         want = sym_mod(exact, p).astype(np.int64)
         assert np.array_equal(got.astype(np.int64), want), p
         assert np.array_equal(got, plain[l].numpy()), p
+
+
+@pytest.mark.parametrize("n_limbs", [1, 2, 3, 4, 5])
+def test_residue_cast_route_for_every_modulus(n_limbs):
+    """The residue-cast kernel's route (`residue_fma`, a plane at a time)
+    for each of the 24 default moduli
+    (`default_moduli(24)`: make_crt_context refuses N = 24, P passing 159
+    bits, but the cast takes any of them) at n_limbs 1-5, on values up to
+    the largest |trunc(a * scale)| the limbs hold, row and column scales:
+    the exact integer residues, and the plain version's (the wrapper's CPU
+    path, which the card holds the kernel to), bitwise."""
+    moduli = default_moduli(24)
+    assert all(5 <= p <= 255 and p % 2 for p in moduli)  # the route's precondition, which the C entry checks
+    rng = np.random.default_rng(100 + n_limbs)
+    a = ((rng.random((16, 96)) - 0.5) * 2.0 ** rng.integers(-20, 20, (16, 96))).astype(F32)
+    a[0, :6] = [0.0, -0.0, 1.0, -1.0, 0.5, -(2.0**-30)]
+    top = 24 * n_limbs - 1
+    radix = limb_radix_f32(moduli, n_limbs)
+    for axis in (0, 1):
+        mags = np.abs(a).max(1 - axis)
+        e = top - np.ceil(np.log2(mags + 1e-30)).astype(np.int64) - rng.integers(0, 3, mags.shape)
+        e1 = e // 2
+        s1, s2 = (2.0 ** e1).astype(F32), (2.0 ** (e - e1)).astype(F32)
+        scale = (s1 * s2)[:, None] if axis == 0 else (s1 * s2)[None, :]
+        x = np.trunc(a * scale)
+        assert np.abs(x).max() < 2.0**top
+        exact = np.vectorize(int, otypes=[object])(x.astype(np.float64))
+        plain = residue_cast_plain(torch.from_numpy(a)[None], torch.from_numpy(s1), torch.from_numpy(s2),
+                                   moduli=moduli, n_limbs=n_limbs, scale_axis=axis)[0]
+        wrapper = residue_cast(torch.from_numpy(a), torch.from_numpy(s1), torch.from_numpy(s2),
+                               moduli=moduli, n_limbs=n_limbs, scale_axis=axis)
+        assert torch.equal(wrapper, plain)
+        for l, p in enumerate(moduli):
+            got = residue_fma(a, scale.astype(F32), n_limbs, p, radix[:, l])
+            assert np.array_equal(got.astype(np.int64), sym_mod(exact, p).astype(np.int64)), (p, axis)
+            assert np.array_equal(got.astype(np.int8), plain[l].numpy()), (p, axis)
 
 
 def test_residue_byte_is_the_twos_complement_byte():

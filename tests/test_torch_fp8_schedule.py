@@ -1,5 +1,6 @@
-"""The exactness argument of the e4m3 Karatsuba kernel (`csrc/fp8_karatsuba.cu`),
-modelled in exact integers.
+"""The exactness argument of the e4m3 kernels (`csrc/fp8_karatsuba.cu`, the
+Karatsuba one, and `csrc/fp8_mod_gemm.cu`, the real one), modelled in exact
+integers.
 
 The kernel forms each residue product from balanced base-16 digits, r = 16 hi
 + lo, and sums the digit products on wgmma in chains, each from zero: HH
@@ -11,10 +12,14 @@ accumulators a product (HH, X, LL), which must stay below 2^24 to be exact.
 The epilogue takes each accumulator's symmetric mod, forms m8 m(HH) + m4 m(X)
 + m(LL) mod p, and combines CR = D - E, CI = F - D - E (+ carry).
 
-Here the chain lengths are read from the kernel's source, the schedule is run
-in numpy int64 at k = FP8_K_CHUNK_LIMIT on the accumulation worst cases, and
-the modelled epilogue is held bitwise against `karatsuba_mod_gemm_plain`.
-CPU only; tolerance: none.
+The real kernel runs the same chains on one product and its epilogue forms
+m8 m(HH) + m4 m(X) + m(LL) (+ carry) mod p.
+
+Here the chain lengths are read from each kernel's source, the schedule is
+run in numpy int64 at k = FP8_K_CHUNK_LIMIT on the accumulation worst cases,
+and the modelled epilogue is held bitwise against `karatsuba_mod_gemm_plain`
+(Karatsuba) and against `fp8_mod_gemm_plain` and `int8_mod_gemm_plain`
+(real).  CPU only; tolerance: none.
 """
 import pathlib
 import re
@@ -24,28 +29,31 @@ import pytest
 import torch
 
 from repro_torch.core.moduli import make_crt_context
-from repro_torch.kernels.fp8_mod_gemm import FP8_K_CHUNK_LIMIT
+from repro_torch.kernels.fp8_mod_gemm import FP8_K_CHUNK_LIMIT, fp8_mod_gemm_plain
+from repro_torch.kernels.int8_mod_gemm import int8_mod_gemm_plain
 from repro_torch.kernels.karatsuba_fused import karatsuba_mod_gemm_plain
 
 SOURCE = pathlib.Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/csrc/fp8_karatsuba.cu"
+#: the two e4m3 kernels' sources, by name
+SOURCES = {"fp8_karatsuba": SOURCE, "fp8_mod_gemm": SOURCE.with_name("fp8_mod_gemm.cu")}
 CHAIN_LIMIT = 1 << 12  # the most a chain may sum (the fp8 accumulation rule)
 F32_EXACT = 1 << 24    # f32 integers are exact below this
 
 
-def chain_lengths() -> dict[str, int]:
+def chain_lengths(source: pathlib.Path = SOURCE) -> dict[str, int]:
     """{"HH", "LL", "X"}: k32 steps a chain sums over, from the kernel's constants."""
-    src = SOURCE.read_text()
+    src = source.read_text()
     out = {}
     for name in ("HH", "LL", "X"):
         m = re.search(rf"constexpr int {name}_CHAIN_K32 = (\d+);", src)
-        assert m, f"{name}_CHAIN_K32 not found in {SOURCE.name}"
+        assert m, f"{name}_CHAIN_K32 not found in {source.name}"
         out[name] = int(m.group(1))
     return out
 
 
-def kernel_bks() -> list[int]:
+def kernel_bks(source: pathlib.Path = SOURCE) -> list[int]:
     """The BK of each tile the kernel compiles (its REPRO_TILE lines)."""
-    found = re.findall(r"^\s*REPRO_TILE\((\d+), (\d+), (\d+), (\d+)\)", SOURCE.read_text(), re.M)
+    found = re.findall(r"^\s*REPRO_TILE\((\d+), (\d+), (\d+), (\d+)\)", source.read_text(), re.M)
     return [int(t[2]) for t in found]
 
 
@@ -103,6 +111,33 @@ def run_chains(a, b, lengths):
         acc_bound = max(acc_bound, int(np.abs(val).sum(0).max()))
         acc[name] = val.sum(0)
     return acc, chain_bound, acc_bound
+
+
+def modelled_real(a, b, moduli, carry=None):
+    """The real kernel's function on stacks of planes, by its schedule and
+    epilogue: m8 m(HH) + m4 m(X) + m(LL) (+ carry) mod p."""
+    lengths = chain_lengths(SOURCES["fp8_mod_gemm"])
+    out = []
+    for pl, p in enumerate(moduli):
+        m4 = sym_mod(16, p)
+        m8 = sym_mod(m4 * m4, p)
+        acc, _, _ = run_chains(a[pl], b[pl], lengths)
+        v = m8 * sym_mod(acc["HH"], p) + m4 * sym_mod(acc["X"], p) + sym_mod(acc["LL"], p)
+        if carry is not None:
+            v = v + carry[pl]
+        out.append(sym_mod(v, p))
+    return np.stack(out).astype(np.int8)
+
+
+def plain_real(a, b, moduli, carry=None):
+    """fp8_mod_gemm_plain and int8_mod_gemm_plain on the same planes, which
+    must agree with each other."""
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))  # noqa: E731
+    c = None if carry is None else t(carry)
+    fp8 = fp8_mod_gemm_plain(t(a), t(b), moduli=moduli, carry=c).numpy()
+    int8 = int8_mod_gemm_plain(t(a), t(b), moduli=moduli, carry=c).numpy()
+    np.testing.assert_array_equal(fp8, int8)
+    return fp8
 
 
 def modelled_karatsuba(ar, ai, br, bi, moduli, carry=None):
@@ -214,3 +249,47 @@ def test_kernel_sum_mod_is_the_plain_sum_mod():
     x, y = np.meshgrid(np.arange(-128, 128), np.arange(-128, 128))
     for p in make_crt_context(21).moduli:
         np.testing.assert_array_equal(sum_mod_small(x, y, p), sym_mod(x.astype(np.int64) + y, p))
+
+
+@pytest.mark.parametrize("source", sorted(SOURCES))
+def test_each_e4m3_source_keeps_the_chain_rule(source, rng):
+    """Both e4m3 kernels: their chain constants divide every compiled
+    tile's k32 steps, and on every worst case at k = FP8_K_CHUNK_LIMIT no
+    chain sums past 2^12 and no accumulator reaches 2^24."""
+    lengths = chain_lengths(SOURCES[source])
+    bks = kernel_bks(SOURCES[source])
+    assert len(bks) >= 2 and all(v >= 1 for v in lengths.values())
+    for bk in bks:
+        assert bk % 32 == 0 and all((bk // 32) % v == 0 for v in lengths.values()), (source, bk, lengths)
+    for case, (a, b) in worst_cases(rng, FP8_K_CHUNK_LIMIT).items():
+        acc, chain_bound, acc_bound = run_chains(a, b, lengths)
+        assert chain_bound <= CHAIN_LIMIT, (source, case)
+        assert acc_bound < F32_EXACT, (source, case)
+        np.testing.assert_array_equal(acc["HH"] * 256 + acc["X"] * 16 + acc["LL"],
+                                      a.astype(np.int64) @ b.astype(np.int64))
+
+
+@pytest.mark.parametrize("case", ["-120", "alternating", "random"])
+def test_real_model_matches_plain_at_the_chunk_limit(rng, case):
+    """The real kernel's modelled schedule and epilogue at k =
+    FP8_K_CHUNK_LIMIT on chip_smoke.py's worst cases, with and without a
+    carry: bitwise fp8_mod_gemm_plain's and int8_mod_gemm_plain's."""
+    a, b = worst_cases(rng, FP8_K_CHUNK_LIMIT)[case]
+    mods = make_crt_context(8).moduli
+    ap = np.ascontiguousarray(np.broadcast_to(a, (8, *a.shape)))
+    bp = np.ascontiguousarray(np.broadcast_to(b, (8, *b.shape)))
+    for carry in (None, residues(rng, mods, (a.shape[0], b.shape[1]))):
+        np.testing.assert_array_equal(modelled_real(ap, bp, mods, carry), plain_real(ap, bp, mods, carry))
+
+
+@pytest.mark.parametrize("carry", [False, True], ids=["no-carry", "carry"])
+@pytest.mark.parametrize("n_mod", [8, 16, 21])
+def test_real_modelled_epilogue_matches_plain(rng, n_mod, carry):
+    """The real kernel's modelled schedule and epilogue equal
+    fp8_mod_gemm_plain and int8_mod_gemm_plain bitwise, at a ragged k (not
+    a multiple of 32 or of any tile's BK)."""
+    mods = make_crt_context(n_mod).moduli
+    m, k, n = 3, 1000, 5
+    a, b = residues(rng, mods, (m, k)), residues(rng, mods, (k, n))
+    c = residues(rng, mods, (m, n)) if carry else None
+    np.testing.assert_array_equal(modelled_real(a, b, mods, c), plain_real(a, b, mods, c))

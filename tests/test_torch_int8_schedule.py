@@ -161,7 +161,7 @@ def test_swizzled_is_the_hardware_swizzle(bk):
     rows = 64
     lin = np.arange(rows * bk).reshape(rows, bk)
     np.testing.assert_array_equal(swizzle_offsets(rows, bk), address_swizzle(lin, bk))
-    src = KARATSUBA.read_text()
+    src = (CSRC / "hopper.cuh").read_text()  # `swizzled`, shared by the TMA kernels
     assert "const int x = BK == 128 ? (row & 7) : ((row >> 1) & 3);" in src
     assert "return row * BK + (((col >> 4) ^ x) << 4) + (col & 15);" in src
 

@@ -6,10 +6,11 @@ It compiles a probe source with four kernels, each casting f32 values with
 the port's build flags (`kernels/build.NVCC_FLAGS`):
 
 - `probe_base`: the load, the index and the byte store alone;
-- `probe_div`: `cast_residue` of `csrc/cast_tile.cuh` (an int32 `%` per
-  limb), as `residue_cast.cu` runs it;
+- `probe_div`: the cast with an int32 `%` per limb and modulus and the f32
+  reciprocal reduce (defined in the probe: the route the port's kernels
+  took before `residue_fma.cuh`, kept here for the comparison);
 - `probe_fma`: `residue_fma` of `csrc/residue_fma.cuh` and its byte, as
-  `fused_karatsuba.cu` and `fused_mod_gemm.cu` run it;
+  `residue_cast.cu`, `fused_karatsuba.cu` and `fused_mod_gemm.cu` run it;
 - `probe_word`: four values a thread through `residue_fma` and
   `pack4_residues` into one word, as the megakernels' cast of a share
   (`cast_store`) does (its counts are per word, four casts, less
@@ -46,6 +47,28 @@ sys.path.insert(0, str(ROOT / "src"))
 PROBE = r"""
 #include "cast_tile.cuh"
 #include "residue_fma.cuh"
+
+// the cast by an int32 remainder per limb: limbs as the reference peels
+// them, each limb's residue by sym_mod_i32, the radix sum, the f32 reduce
+__device__ __forceinline__ int8_t cast_residue(float a, float scale, int l, const CastParams& prm) {
+  float rem = truncf(a * scale), limbs[REPRO_MAX_LIMBS];
+#pragma unroll
+  for (int i = REPRO_MAX_LIMBS - 1; i >= 1; --i) {
+    if (i < prm.n_limbs) {
+      const float hi = truncf(rem * ldexpf(1.0f, -24 * i));
+      rem = rem - hi * ldexpf(1.0f, 24 * i);
+      limbs[i] = hi;
+    }
+  }
+  limbs[0] = rem;
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < REPRO_MAX_LIMBS; ++i) {
+    if (i < prm.n_limbs) acc = acc + static_cast<float>(sym_mod_i32(static_cast<int>(limbs[i]), prm.pi[l])) * prm.radix[i][l];
+  }
+  const float p = prm.p[l];
+  return static_cast<int8_t>(sym_mod_f32(acc, p, static_cast<float>((prm.pi[l] - 1) / 2), prm.recip[l]));
+}
 
 extern "C" __global__ void probe_base(const float* x, int8_t* out, float scale, int l, CastParams cp) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;

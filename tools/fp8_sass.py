@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Count the tensor-core, conversion and fold instructions of one of the
-port's GEMM kernels as `nvcc` compiled it for sm_90a, per compiled variant:
-the e4m3 Karatsuba kernel (`csrc/fp8_karatsuba.cu`, the default), the int8
-Karatsuba kernel (`csrc/karatsuba_fused.cu`) or the real megakernel
-(`csrc/fused_mod_gemm.cu`).
+port's kernels as `nvcc` compiled it for sm_90a, per compiled variant:
+the e4m3 Karatsuba kernel (`csrc/fp8_karatsuba.cu`, the default), the e4m3
+real kernel (`csrc/fp8_mod_gemm.cu`), the int8 Karatsuba kernel
+(`csrc/karatsuba_fused.cu`), the real megakernel (`csrc/fused_mod_gemm.cu`)
+or the residue cast (`csrc/residue_cast.cu`, which has no tensor-core
+instruction and so no main loop: its counts are of the whole function).
 
 It builds one checkout's library of that kernel (into that checkout's
 `build/`), lists it with `cuobjdump -sass` and counts, for each kernel
@@ -20,12 +22,19 @@ Needs the CUDA toolkit (`nvcc`, `cuobjdump`):
     python3 tools/fp8_sass.py [--kernel NAME] [--src PATH/TO/CHECKOUT/src]
 
 It prints one JSON line: {"src", "kernel", "functions": {label: {"all":
-{...}, "main_loop": {...}}}}.
+{...}, "main_loop": {...}}}}.  With `--against OTHER/src` it also builds
+that checkout's library of the same kernel and compares each variant's
+instructions in order, with the immediate kernel-parameter offsets
+(`c[0x0][0x...]`) and branch targets taken out (a register-indexed
+parameter load, `c[0x0][R+0x...]`, keeps its offset): "against": {label:
+{"instructions": [this, other], "differing": [this, other]}}, the
+instructions of each side that an in-order match leaves unpaired.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import difflib
 import json
 import pathlib
 import re
@@ -36,11 +45,12 @@ import sys
 # mma.sync is HMMA (e4m3 included on sm_90) or IMMA
 OPCODES = ("QGMMA", "HGMMA", "IGMMA", "HMMA", "IMMA", "F2I", "FADD", "FFMA", "MUFU.RCP", "LDL", "STL")
 TENSOR = ("QGMMA", "HGMMA", "IGMMA", "HMMA", "IMMA")
-KERNELS = ("fp8_karatsuba", "karatsuba_fused", "fused_mod_gemm")
+KERNELS = ("fp8_karatsuba", "fp8_mod_gemm", "karatsuba_fused", "fused_mod_gemm", "residue_cast")
 # the variant's label from its mangled name: Tile<BM, BN, BK, WN> (a kernel of
 # mma.sync tiles; the megakernel's also by N bound, prepared B and vector
-# loads), fp8_karatsuba_kernel<BK, stages, TMA> or karatsuba_kernel<BN, BK,
-# stages, TMA>
+# loads), fp8_karatsuba_kernel<BK, stages, TMA>, fp8_mod_gemm_kernel<BK,
+# stages, TMA>, karatsuba_kernel<BN, BK, stages, TMA> or
+# residue_cast_kernel<limbs, VEC>
 LABELS = (
     (re.compile(r"TileILi(\d+)ELi(\d+)ELi(\d+)ELi\d+EELi(\d+)ELb(\d)ELb(\d)E"),
      lambda g: f"tile {g[0]}x{g[1]}x{g[2]} nmax={g[3]} prepared={g[4]} vec={g[5]}"),
@@ -48,8 +58,11 @@ LABELS = (
      lambda g: f"tile {g[0]}x{g[1]}x{g[2]} vec={g[3]}"),
     (re.compile(r"fp8_karatsuba_kernelILi(\d+)ELi\d+ELb(\d)E"),
      lambda g: f"tile 64x64x{g[0]} {'tma' if g[1] == '1' else 'global loads'}"),
+    (re.compile(r"fp8_mod_gemm_kernelILi(\d+)ELi\d+ELb(\d)E"),
+     lambda g: f"tile 128x64x{g[0]} {'tma' if g[1] == '1' else 'global loads'}"),
     (re.compile(r"karatsuba_kernelILi(\d+)ELi(\d+)ELi\d+ELb(\d)E"),
      lambda g: f"tile 64x{g[0]}x{g[1]} {'tma' if g[2] == '1' else 'global loads'}"),
+    (re.compile(r"residue_cast_kernelILi(\d)ELb(\d)E"), lambda g: f"limbs={g[0]} vec={g[1]}"),
 )
 
 
@@ -66,6 +79,46 @@ def sass_functions(text: str) -> dict[str, list[str]]:
         if m and current is not None and m.group(1) != "NOP":
             current.append(m.group(1) + (m.group(2) if m.group(1) == "MUFU" and m.group(2) else ""))
     return out
+
+
+def sass_instructions(text: str) -> dict[str, list[str]]:
+    """{function: [instruction text, in order]} from `cuobjdump -sass`, NOPs
+    left out, with parameter offsets and branch targets replaced by a
+    placeholder."""
+    out, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = out.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if m and current is not None and not re.match(r"(?:@!?U?P\w+\s+)?NOP\b", m.group(1)):
+            ins = re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][param]", m.group(1))
+            ins = re.sub(r"`\(\.L_x_\d+\)", "label", ins)
+            current.append(re.sub(r"^((?:@!?U?P\w+\s+)?(?:BRA|BSSY|CALL|JMP|BRX)\S*\s+.*?)0x[0-9a-f]+",
+                                  r"\1addr", ins))
+    return out
+
+
+def compare(this: list[str], other: list[str]) -> dict:
+    """The instructions of each side that an in-order match leaves unpaired."""
+    diff = [0, 0]
+    for tag, i1, i2, j1, j2 in difflib.SequenceMatcher(None, this, other, autojunk=False).get_opcodes():
+        if tag != "equal":
+            diff[0] += i2 - i1
+            diff[1] += j2 - j1
+    return {"instructions": [len(this), len(other)], "differing": diff}
+
+
+def library_sass(src: str, kernel: str) -> str:
+    """`cuobjdump -sass` of the library of `kernel` built from checkout
+    `src` (a fresh interpreter, so two checkouts' modules do not mix)."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); from repro_torch.kernels import build; "
+            "build.library(sys.argv[2]); print(build.library_path(sys.argv[2])); print(build.nvcc_path())")
+    lib, nvcc = subprocess.run([sys.executable, "-c", code, src, kernel], capture_output=True, text=True,
+                               check=True).stdout.split()
+    cuobjdump = str(pathlib.Path(nvcc).with_name("cuobjdump"))
+    return subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True, check=True).stdout
 
 
 def label_of(name: str) -> str:
@@ -86,20 +139,22 @@ def main() -> int:
     ap.add_argument("--src", default=str(pathlib.Path(__file__).resolve().parents[1] / "src"),
                     help="the `src` directory of the checkout (default: this one)")
     ap.add_argument("--kernel", default="fp8_karatsuba", choices=KERNELS, help="the kernel's CUDA source")
+    ap.add_argument("--against", metavar="OTHER/src",
+                    help="also compare each variant's instructions with this checkout's")
     args = ap.parse_args()
-    sys.path.insert(0, args.src)
-    from repro_torch.kernels import build
-
-    build.library(args.kernel)
-    cuobjdump = str(pathlib.Path(build.nvcc_path()).with_name("cuobjdump"))
-    sass = subprocess.run([cuobjdump, "-sass", str(build.library_path(args.kernel))],
-                          capture_output=True, text=True, check=True).stdout
+    sass = library_sass(args.src, args.kernel)
     record = {}
     for name, ops in sass_functions(sass).items():
         where = [i for i, op in enumerate(ops) if op in TENSOR]
         loop = ops[where[0]:where[-1] + 1] if where else []
         record[label_of(name)] = {"all": counts(ops), "main_loop": counts(loop)}
-    print(json.dumps({"src": args.src, "kernel": args.kernel, "functions": record}), flush=True)
+    out = {"src": args.src, "kernel": args.kernel, "functions": record}
+    if args.against:
+        # matched by label: two builds need not mangle one variant alike
+        this, other = ({label_of(name): ins for name, ins in sass_instructions(text).items()}
+                       for text in (sass, library_sass(args.against, args.kernel)))
+        out["against"] = {label: compare(ins, other.get(label, [])) for label, ins in this.items()}
+    print(json.dumps(out), flush=True)
     return 0
 
 

@@ -1,10 +1,17 @@
 #!/usr/bin/env python3
-"""Time the six GEMM kernels, the attention kernel and the launch-timing
-copy kernel of one checkout's `repro_torch` on the card.
+"""Time the six GEMM kernels, the residue cast, the Garner reconstruction,
+the attention kernel and the launch-timing copy kernel of one checkout's
+`repro_torch` on the card.
 
 Each GEMM kernel runs at the main path's shape (m = n = k = 4096; N = 8
 moduli real, 14 complex) through its wrapper's plain call, which launches
-the kernel's default tile; the attention kernel runs one causal 32k prefill
+the kernel's default tile.  The residue cast runs at the complex main
+path's casts (S = 2 stacked 4096 x 4096 f32 parts, N = 14), once with row
+scales (`residue_cast:rows`, scale_axis 0, A's cast) and once with column
+scales (`residue_cast:cols`, B's); the Garner reconstruction at its
+(S = 2, N = 14, 4096 x 4096) residues to double-single output
+(`crt_garner`); their exponents come from the port's fast scaling of phi =
+0.5 operands (seed 0).  The attention kernel runs one causal 32k prefill
 at Qwen2.5-32B's widths (B = 1, S = 32768, H = 40, KV = 8, D = 128, bf16)
 through `flash_attention`, where the checkout has it.  Each is timed with
 CUDA events (mean of `--reps` launches after a warm-up).  The copy
@@ -22,10 +29,12 @@ b, a):
 It builds that checkout's kernels first (into its `build/`), holds each
 GEMM kernel it times against its plain version, bitwise, at (m, k, n) =
 (257, 1000, 129) and (257, 1024, 144) (ragged edges; k and n off and on
-multiples of 16), and prints one JSON line: {"src", "card", "ms": {kernel:
-ms}, "bitwise": {kernel: bool}}; it exits 1 if a kernel disagrees.
-`--only NAME [NAME ...]` builds and times only those kernels (a tree that
-differs from another in one source).
+multiples of 16), the residue cast and the Garner reconstruction at a
+ragged (S, m, k) = (2, 257, 1001) (odd k: the cast's scalar path), both
+scale axes and both outputs, and prints one JSON line: {"src", "card",
+"ms": {kernel: ms}, "bitwise": {kernel: bool}}; it exits 1 if a kernel
+disagrees.  `--only NAME [NAME ...]` builds and times only those kernels
+(a tree that differs from another in one source).
 """
 from __future__ import annotations
 
@@ -53,6 +62,8 @@ def check(name, rng, dev) -> bool:
         pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
         return all(torch.equal(g, w) for g, w in pairs)
 
+    if name in ("residue_cast", "crt_garner"):
+        return check_cast_garner(name, rng, dev)
     ok = True
     for m, k, n in ((257, 1000, 129), (257, 1024, 144)):
         ctx = make_crt_context(14 if name in ("karatsuba_fused", "fused_karatsuba", "fp8_karatsuba") else 8)
@@ -89,6 +100,50 @@ def check(name, rng, dev) -> bool:
     return bool(ok)
 
 
+def scaled_operands(rng, dev, ctx, m, k, n):
+    """(A, B) complex phi = 0.5 operands as stacked (2, m, k) and (2, k, n)
+    f32 parts on the card, with the port's fast-mode exponents (e_mu, e_nu)
+    for `ctx`."""
+    import torch
+
+    from repro_torch.core import scaling
+
+    def phi(shape):
+        re_, im_ = ((rng.random(shape) - 0.5) * np.exp(rng.standard_normal(shape) * 0.5) for _ in range(2))
+        return torch.from_numpy((re_ + 1j * im_).astype(np.complex64)).to(dev)
+
+    a, b = phi((m, k)), phi((k, n))
+    e_mu, e_nu = scaling.scale_fast_complex(a.real, a.imag, b.real, b.imag, ctx)
+    return torch.stack([a.real, a.imag]).float(), torch.stack([b.real, b.imag]).float(), e_mu, e_nu
+
+
+def check_cast_garner(name, rng, dev) -> bool:
+    """The residue cast (both scale axes) or the Garner reconstruction (f32
+    and double-single) against its plain version, bitwise, at (S, m, k) =
+    (2, 257, 1001), N = 14."""
+    import torch
+
+    from repro_torch.core.moduli import make_crt_context
+    from repro_torch.core.plan import n_limbs_for_ctx
+    from repro_torch.kernels import crt_garner as cg, residue_cast as rc
+    from repro_torch.kernels.common import split_scale_exponent
+
+    ctx = make_crt_context(14)
+    xa, xb, e_mu, e_nu = scaled_operands(rng, dev, ctx, 257, 1001, 129)
+    if name == "residue_cast":
+        ok = True
+        for x, e, axis in ((xa, e_mu, 0), (xb, e_nu, 1)):
+            kw = dict(moduli=ctx.moduli, n_limbs=n_limbs_for_ctx(ctx), scale_axis=axis)
+            ok &= torch.equal(rc.residue_cast(x, *split_scale_exponent(e), **kw),
+                              rc.residue_cast_plain(x, *split_scale_exponent(e), **kw))
+        return bool(ok)
+    e_nu = torch.from_numpy(rng.integers(-30, 30, 1001).astype(np.int32)).to(dev)
+    planes = torch.from_numpy(np.stack([rng.integers(-((p - 1) // 2), (p - 1) // 2 + 1, (2, 257, 1001))
+                                        for p in ctx.moduli], axis=1).astype(np.int8)).to(dev)
+    return all(torch.equal(cg.crt_garner(planes, e_mu, e_nu, ctx, out_dd=dd),
+                           cg.crt_garner_plain(planes, e_mu, e_nu, ctx, out_dd=dd)) for dd in (False, True))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True, help="the `src` directory of the checkout to time")
@@ -105,7 +160,8 @@ def main() -> int:
     from repro_torch.core.moduli import make_crt_context
     from repro_torch.core.plan import n_limbs_for_ctx
     import repro_torch.kernels as kernels
-    from repro_torch.kernels import build, fp8_mod_gemm, int8_mod_gemm, karatsuba_fused
+    from repro_torch.kernels import build, crt_garner, fp8_mod_gemm, int8_mod_gemm, karatsuba_fused, residue_cast
+    from repro_torch.kernels.common import split_scale_exponent
 
     if args.only:
         for name in args.only:
@@ -128,7 +184,14 @@ def main() -> int:
     fa, fb = mant((size, size)), mant((size, size))
     far, fai, fbr, fbi = (mant((size, size)) for _ in range(4))
     zeros = torch.zeros(size, dtype=torch.int32, device=dev)
+    xa, xb, e_mu, e_nu = scaled_operands(rng, dev, cplx, size, size, size)
+    cast = dict(moduli=cplx.moduli, n_limbs=n_limbs_for_ctx(cplx))
+    sa, sb = split_scale_exponent(e_mu), split_scale_exponent(e_nu)
+    e_res = torch.stack([planes(14, (size, size)) for _ in range(2)])  # (CR, CI) residues, |r| <= 60 < p / 2
     calls = {
+        "residue_cast:rows": lambda: residue_cast.residue_cast(xa, *sa, scale_axis=0, **cast),
+        "residue_cast:cols": lambda: residue_cast.residue_cast(xb, *sb, scale_axis=1, **cast),
+        "crt_garner": lambda: crt_garner.crt_garner(e_res, e_mu, e_nu, cplx, out_dd=True),
         "int8_mod_gemm": lambda: int8_mod_gemm.int8_mod_gemm_batched(a, b, moduli=real.moduli),
         "karatsuba_fused": lambda: karatsuba_fused.karatsuba_mod_gemm_batched(ar, ai, br, bi, moduli=cplx.moduli),
         "fused_mod_gemm": lambda: int8_mod_gemm.fused_mod_gemm(
@@ -145,8 +208,9 @@ def main() -> int:
                    for shape in ((bsz, seq, heads, hd), (bsz, seq, kv_heads, hd), (bsz, seq, kv_heads, hd)))
         calls["flash_attention"] = lambda: kernels.flash_attention.flash_attention(q, k, v)
     if args.only:
-        calls = {name: call for name, call in calls.items() if name in args.only}
-    bitwise = {name: check(name, rng, dev) for name in calls if name != "flash_attention"}
+        calls = {name: call for name, call in calls.items() if name.split(":")[0] in args.only}
+    bitwise = {name: check(name, rng, dev) for name in dict.fromkeys(c.split(":")[0] for c in calls)
+               if name != "flash_attention"}
     ms = {}
     if "launch_copy" in kernels.WRAPPERS and (not args.only or "launch_copy" in args.only):
         from chip_smoke import device_ms
