@@ -17,11 +17,12 @@ failure is caught.
    head dim) of the attention kernel, with the path it takes (bf16: the
    TMA ring and warp-specialised wgmma kernel; f32: the SIMT kernel).
    Fails if ptxas serialized any wgmma instructions (its C7512 warning),
-   if a bf16 attention kernel spills, or if either e4m3 kernel, the int8
-   Karatsuba kernel or the real megakernel spills at its default tile (in
-   any of that tile's compiled variants).
+   if a bf16 attention kernel spills, or if either e4m3 kernel, either
+   int8 product kernel or the real megakernel spills at its default tile
+   (in any of that tile's compiled variants).
 2. Hold each kernel against its plain PyTorch version on the card, bitwise
-   (`torch.equal`) except attention: the chain scale -> cast (rows and columns, S = 1 or 2)
+   (`same_bits`: floating outputs through their integer views, so a zero's
+   sign counts) except attention: the chain scale -> cast (rows and columns, S = 1 or 2)
    -> product (with and without carry) -> Garner (f32 and double-single) at
    a ragged (257, 1000, 129) and at the main path's 4096^3 (N = 8 real,
    N = 14 complex).  Times each kernel and its plain version at the main
@@ -41,19 +42,29 @@ failure is caught.
    worst case m = n = 128, k = FP8_K_CHUNK_LIMIT = 2^16: planes of -120
    (the largest digits in every product), of alternating signs, and
    random; for the complex kernel AR = -120, AI = 0.
-   The three kernels on wgmma with a TMA load path (`fp8_karatsuba`,
-   `fp8_mod_gemm`, `karatsuba_fused`) on both of their load paths, every
-   tile, with and without carry, against their plain versions (the e4m3
-   ones also against the int8 kernels): RAGGED at N = 7, 14 and 21 (real:
-   8, 16, 21; k and n off multiples of 16: the kernel's own threads load
-   from global memory) and ALIGNED_RAGGED (257, 1024, 144) at N = 14
-   (real: 8; TMA, ragged edges), the real one also on views 1 byte into
-   their storage (global loads, byte by byte); the wrappers'
-   `tma_launches` beside `launches` must show RAGGED and the offset views
-   took no TMA launch and ALIGNED_RAGGED only TMA launches.  The int8 Karatsuba kernel
-   also at its k bound, k = INT8_K_LIMIT = 2^17 (m = n = 128, N = 8, every
-   tile, with and without carry): planes of -127 (its int32 sums reach
-   127^2 k) and F operands at +-127.  The e4m3 kernels' thread-block
+   The four kernels on wgmma with a TMA load path (`fp8_karatsuba`,
+   `fp8_mod_gemm`, `karatsuba_fused`, `int8_mod_gemm`) on both of their
+   load paths, every tile, with and without carry, against their plain
+   versions (the e4m3 ones also against the int8 kernels): RAGGED at N =
+   7, 14 and 21 (real: 8, 16, 21; k and n off multiples of 16: the
+   kernel's own threads load from global memory), DEEP_RAGGED (129, 4000,
+   129) at N = 14 (real: 8; global loads through more than two turns of
+   every ring) and ALIGNED_RAGGED (257, 1024, 144) at N = 14 (real: 8;
+   TMA, ragged edges), the real ones also on views 1 byte into their
+   storage (global loads, byte by byte); the wrappers' `tma_launches`
+   beside `launches` must show RAGGED, DEEP_RAGGED and the offset views
+   took no TMA launch and ALIGNED_RAGGED only TMA launches.  At the main
+   path's size the int8 real kernel is also timed on its global-load path,
+   at n - 4 (`global_ms`).
+   Both int8 kernels also at their k bound, k = INT8_K_LIMIT = 2^17 (m = n
+   = 128, N = 8, every tile, with and without carry): planes of -127 (the
+   int32 sums reach 127^2 k), for the Karatsuba one also F operands at
+   +-127, for the real one also every residue at its largest magnitude,
+   (p - 1) / 2 against -(p - 1) / 2.
+   The Garner reconstruction against its plain version at S = 1 and 2, N
+   = 1-21, to f32 and double-single, at n = 131 (its scalar path), 256
+   and 260 (its vector path), on residues 1 byte into their storage, and
+   on bytes over the whole int8 range.  The e4m3 kernels' thread-block
    clusters and the most clusters the card holds at once, per tile and N,
    as for the megakernels.
    The residue cast against its plain version on both scale axes, S = 1
@@ -210,6 +221,7 @@ LAUNCH_BOUND_SIZES = (512, 1024)  # sgemm sizes where one launch against four sh
 LAUNCH_BOUND_REPS = 20
 RAGGED = (257, 1000, 129)  # (m, k, n) off every tile multiple
 ALIGNED_RAGGED = (257, 1024, 144)  # ragged edges, but k and n multiples of 16: strides TMA can map
+DEEP_RAGGED = (129, 4000, 129)  # k off multiples of 16 and past two turns of every ring (2 ST BK < 4000)
 MAIN = 4096                # the main path's m = n = k
 BIG = 8192                 # the largest zgemm of the main path
 SMALL = 512                # the card-vs-cpu end-to-end parity size
@@ -227,6 +239,40 @@ ATTN_BATCH_EDGES = (((2, 200, 8, 2, 128), None), ((2, 128, 8, 2, 128), 200))
 ATTN_F32_TOL = 2e-5        # f32: max|kernel - plain|, tests/test_kernels.py's tolerance
 ATTN_BF16_ROW_TOL = 2e-2   # bf16: the largest `attention_row_err` of kernel against plain
 ATTN_CONTROL = torch.float8_e4m3fn  # the plain version with P in this type must read over it
+
+
+# the integer type whose view holds a floating type's bits
+BITS_OF = {torch.float16: torch.int16, torch.bfloat16: torch.int16, torch.float32: torch.int32,
+           torch.float64: torch.int64}
+
+
+def bits(t):
+    """`t` as the integer view of its bits (complex: of its real and
+    imaginary parts); integer tensors as they are."""
+    if t.is_complex():
+        t = torch.view_as_real(t)
+    return t.view(BITS_OF[t.dtype]) if t.dtype in BITS_OF else t
+
+
+def same_bits(got, want) -> bool:
+    """Equal dtype, shape and bits.  Floating outputs are compared through
+    their integer views: `torch.equal` counts -0.0 equal to +0.0."""
+    return got.dtype == want.dtype and torch.equal(bits(got), bits(want))
+
+
+def first_difference(got, want) -> str:
+    """How two outputs differ: the count of differing elements, the first
+    index, both values and both bit patterns there."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return f"{got.dtype} {tuple(got.shape)} against {want.dtype} {tuple(want.shape)}"
+    gb, wb = bits(got), bits(want)
+    bad = (gb != wb).nonzero()
+    first = tuple(int(i) for i in bad[0])
+    width = 2 * gb.element_size()
+    pattern = lambda t: format(int(t[first]) & ((1 << 4 * width) - 1), f"0{width}x")  # noqa: E731
+    value = lambda t: t[first[:got.dim()]].item()  # noqa: E731
+    return (f"{bad.shape[0]} elements; first at {first}: {value(got)!r} (0x{pattern(gb)}) "
+            f"against {value(want)!r} (0x{pattern(wb)})")
 
 
 def phi_matrix(rng, shape, phi, dtype):
@@ -292,10 +338,18 @@ PTXAS_LABELS = {"flash_attention": (re.compile(r"fa_(f32|bf16)_kernelILi(\d+)E")
                                  lambda g: "tile " + tile_label((128, 64, g[0]))),
                 # karatsuba_kernel<BN, BK, stages, TMA>: the tile 64 x BN x BK
                 "karatsuba_fused": (re.compile(r"karatsuba_kernelILi(\d+)ELi(\d+)ELi\d+ELb\d+E"),
-                                    lambda g: "tile " + tile_label((64, g[0], g[1])))}
+                                    lambda g: "tile " + tile_label((64, g[0], g[1]))),
+                # int8_mod_gemm_kernel<BM, BN, BK, stages, TMA>
+                "int8_mod_gemm": (re.compile(r"int8_mod_gemm_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi\d+ELb\d+E"),
+                                  lambda g: "tile " + tile_label(g)),
+                # crt_garner_kernel<NMAX, VEC, DD>
+                "crt_garner": (re.compile(r"crt_garner_kernelILi(\d+)ELb(\d)ELb(\d)E"),
+                               lambda g: f"nmax={g[0]} {'vector' if g[1] == '1' else 'scalar'} "
+                                         f"{'double-single' if g[2] == '1' else 'f32'}")}
 # the kernels that fail phase 1 if they spill at their default tile
 NO_SPILL_AT_DEFAULT = {"fp8_karatsuba": ("fp8", "complex"), "fp8_mod_gemm": ("fp8", "real"),
-                       "karatsuba_fused": ("kernel", "complex"), "fused_mod_gemm": ("fused", "real")}
+                       "karatsuba_fused": ("kernel", "complex"), "fused_mod_gemm": ("fused", "real"),
+                       "int8_mod_gemm": ("kernel", "real")}
 WGMMA_SERIALIZED = "wgmma.mma_async instructions are serialized"  # ptxas's warning (C7512)
 
 
@@ -362,6 +416,19 @@ def cast_flops(n_mod, n_limbs):
     return 1 + 3 * (n_limbs - 1) + n_mod * (5 * n_limbs + 2 * (n_limbs - 1) + 5)
 
 
+def garner_flops(n_mod, out_dd):
+    """f32 operations that one output element of the Garner kernel's route
+    (`csrc/crt_garner.cu`) needs, an FMA counted as 2 as the 67 TFLOP/s
+    peak counts it: a residue byte to f32 (one subtraction, N); for each
+    digit t >= 1, the sum of t + 1 terms by fmas from 0 (2 (t + 1)) and
+    one reduction (multiply, add, subtract, fma: 5), (N - 1)(N + 7) in
+    all; the double-single sum, a digit a product (1), three fmas (6) and
+    `dd_add` (11); the inverse scaling, 4 multiplies for the pair (3 with
+    one add for f32).  The scale products of a row or a column are not
+    counted per element."""
+    return n_mod + (n_mod - 1) * (n_mod + 7) + 18 * n_mod + (4 if out_dd else 3)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -392,7 +459,7 @@ class KernelChecks:
         equal to the default tile's (`want`) bitwise, and its time."""
         got = kernel()
         pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
-        if not all(torch.equal(g, w) for g, w in pairs):
+        if not all(same_bits(g, w) for g, w in pairs):
             raise AssertionError(f"{name} tile {tile}: differs from the default tile's output")
         ms = cuda_ms(kernel, reps)
         self.record[name]["tiles_ms"][tile_label(tile)] = ms
@@ -478,14 +545,17 @@ class KernelChecks:
 
     def load_paths(self, name):
         """A kernel with two load paths (`fp8_karatsuba`, `karatsuba_fused`,
-        `fp8_mod_gemm`) on both, every tile, bitwise against its plain
-        version (the e4m3 ones also against the int8 kernel), with and
-        without carry: RAGGED (k and n off multiples of 16: the kernel's
-        threads load from global memory) at N = 7, 14 and 21 (real: 8, 16,
-        21), and ALIGNED_RAGGED (TMA, ragged edges) at N = 14 (real: 8).
-        The real one also at ALIGNED_RAGGED on views 1 byte into their
-        storage (not 16-byte aligned: global loads, byte by byte).  The
-        wrapper's counts show which path each launch took."""
+        `fp8_mod_gemm`, `int8_mod_gemm`) on both, every tile, bitwise
+        against its plain version (the e4m3 ones also against the int8
+        kernel), with and without carry: RAGGED (k and n off multiples of
+        16: the kernel's threads load from global memory) at N = 7, 14 and
+        21 (real: 8, 16, 21), DEEP_RAGGED (global loads over more than two
+        turns of every ring, where warps that take slices in turn would
+        outrun the stages) at N = 14 (real: 8), and ALIGNED_RAGGED (TMA,
+        ragged edges) at N = 14 (real: 8).  The real ones also at
+        ALIGNED_RAGGED on views 1 byte into their storage (not 16-byte
+        aligned: global loads, byte by byte).  The wrapper's counts show
+        which path each launch took."""
         from repro_torch.core.moduli import make_crt_context
 
         _, ig, kf, _ = self.mods
@@ -495,9 +565,11 @@ class KernelChecks:
                               kf.karatsuba_mod_gemm_batched),
             "karatsuba_fused": (kf.karatsuba_mod_gemm_batched, kf.karatsuba_mod_gemm_plain, None),
             "fp8_mod_gemm": (f8.fp8_mod_gemm_batched, f8.fp8_mod_gemm_plain, ig.int8_mod_gemm_batched),
+            "int8_mod_gemm": (ig.int8_mod_gemm_batched, ig.int8_mod_gemm_plain, None),
         }[name]
-        real = name == "fp8_mod_gemm"
+        real = name in ("fp8_mod_gemm", "int8_mod_gemm")
         cases = [(RAGGED, FUSED_REAL_N if real else FUSED_COMPLEX_N, False, 0),
+                 (DEEP_RAGGED, (8,) if real else (14,), False, 0),
                  (ALIGNED_RAGGED, (8,) if real else (14,), True, 0)]
         if real:
             cases.append((ALIGNED_RAGGED, (8,), False, 1))
@@ -559,6 +631,79 @@ class KernelChecks:
                                  lambda: kf.karatsuba_mod_gemm_plain(*ops, moduli=mods, carry=c))
                 print(f"  karatsuba_fused worst case 128x{k}x128 N=8 {label} tile {tile_label(tile)}: == plain "
                       "with and without carry, bitwise", flush=True)
+
+    def int8_worst_case(self):
+        """The int8 real kernel at its k bound, k = 2^17, m = n = 128, N = 8,
+        every tile, with and without carry, against its plain version:
+        planes of -127 (A = B: every product 127^2, the sums at 127^2 k, the
+        most an int32 may hold), and every residue at its largest magnitude,
+        A_l = (p_l - 1) / 2 against B_l = -(p_l - 1) / 2."""
+        from repro_torch.core.moduli import make_crt_context
+
+        _, ig, _, _ = self.mods
+        mods = make_crt_context(8).moduli
+        k = INT8_K_LIMIT
+        half = torch.tensor([(p - 1) // 2 for p in mods], dtype=torch.int8, device=self.dev)[:, None, None]
+        cases = {"-127": (torch.full((8, 128, k), -127, dtype=torch.int8, device=self.dev),
+                          torch.full((8, k, 128), -127, dtype=torch.int8, device=self.dev)),
+                 "largest residues": (half.expand(8, 128, k).contiguous(), (-half).expand(8, k, 128).contiguous())}
+        carry = self.residues(mods, (128, 128))
+        for label, (a, b) in cases.items():
+            for tile in self.tiles_of["int8_mod_gemm"]:
+                for c in (None, carry):
+                    self.compare("int8_mod_gemm",
+                                 lambda: ig.int8_mod_gemm_batched(a, b, moduli=mods, carry=c, tile=tile),
+                                 lambda: ig.int8_mod_gemm_plain(a, b, moduli=mods, carry=c))
+                print(f"  int8_mod_gemm worst case 128x{k}x128 N=8 {label} tile {tile_label(tile)}: == plain "
+                      "with and without carry, bitwise", flush=True)
+
+    def int8_global_ms(self, mods, m, k, n):
+        """The int8 real kernel on its global-load path at the main path's
+        size, (m, k, n - 4) (n a multiple of 4 but not of 16: TMA cannot map
+        B's rows), held bitwise against its plain version with no TMA
+        launch, and timed beside its TMA path (`global_ms`)."""
+        ig = self.mods[1]
+        wrapper = ig.int8_mod_gemm_batched
+        a, b = self.residues(mods, (m, k)), self.residues(mods, (k, n - 4))
+        tma_before = wrapper.tma_launches
+        if not same_bits(wrapper(a, b, moduli=mods), ig.int8_mod_gemm_plain(a, b, moduli=mods)):
+            raise AssertionError(f"int8_mod_gemm {m}x{k}x{n - 4}: differs from its plain version")
+        ms = cuda_ms(lambda: wrapper(a, b, moduli=mods), 5)
+        if wrapper.tma_launches != tma_before:
+            raise AssertionError(f"int8_mod_gemm {m}x{k}x{n - 4}: a launch took the TMA path")
+        self.record["int8_mod_gemm"]["global_ms"] = ms
+        print(f"  int8_mod_gemm {m}x{k}x{n - 4} N={len(mods)} (global loads): ms={ms:.4f} == plain, bitwise; "
+              f"TMA path at {m}x{k}x{n}: {self.record['int8_mod_gemm']['ms']:.4f}", flush=True)
+
+    def garner_cases(self):
+        """The Garner kernel against its plain version, bitwise, at S = 1
+        and 2 and N = 1-21, to f32 and to double-single: at n = 131 (off
+        multiples of 4: the scalar instantiation), at n = 256 (the vector
+        one), on residues 1 byte into their storage (not 4-byte aligned:
+        scalar), and on bytes over the whole int8 range (residues need not
+        be canonical)."""
+        from repro_torch.core.moduli import make_crt_context
+
+        cg = self.mods[3]
+        for n_mod in range(1, 22):
+            ctx = make_crt_context(n_mod)
+            for s in (1, 2):
+                for m, n, offset, whole in ((33, 131, 0, False), (65, 256, 0, False), (17, 64, 1, False),
+                                            (9, 260, 0, True)):
+                    if whole:
+                        planes = torch.from_numpy(self.rng.integers(-128, 128, (s, n_mod, m, n), dtype=np.int8))
+                    else:
+                        planes = self.residues(ctx.moduli, (s, m, n)).transpose(0, 1)
+                    e_res = torch.empty(planes.numel() + offset, dtype=torch.int8, device=self.dev)
+                    e_res = e_res[offset:].view(planes.shape)
+                    e_res.copy_(planes)
+                    e_mu = torch.from_numpy(self.rng.integers(20, 70, m).astype(np.int32)).to(self.dev)
+                    e_nu = torch.from_numpy(self.rng.integers(20, 70, n).astype(np.int32)).to(self.dev)
+                    for out_dd in (False, True):
+                        self.compare("crt_garner", lambda: cg.crt_garner(e_res, e_mu, e_nu, ctx, out_dd=out_dd),
+                                     lambda: cg.crt_garner_plain(e_res, e_mu, e_nu, ctx, out_dd=out_dd))
+            print(f"  crt_garner N={n_mod} S=1 and 2, n = 131, 256 and 260, views 1 byte in, whole-range bytes: "
+                  "== plain to f32 and double-single, bitwise", flush=True)
 
     def launch_copy(self):
         """The launch-timing copy kernel against x.clone() on the
@@ -705,9 +850,8 @@ class KernelChecks:
         pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
         err = 0.0
         for g, w in pairs:
-            if not torch.equal(g, w):
-                bad = int((g != w).sum())
-                raise AssertionError(f"{name}: kernel differs from its plain version in {bad} elements")
+            if not same_bits(g, w):
+                raise AssertionError(f"{name}: kernel differs from its plain version: {first_difference(g, w)}")
             err = max(err, float((g.double() - w.double()).abs().max()))
         self.record[name]["max_abs_err"] = max(self.record[name]["max_abs_err"], err)
         if timed is not None:
@@ -728,7 +872,7 @@ class KernelChecks:
     def same_as_int8(self, name, got, want, what):
         """Require the e4m3 kernel's residues to equal the int8 kernel's."""
         pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
-        if not all(torch.equal(g, w) for g, w in pairs):
+        if not all(same_bits(g, w) for g, w in pairs):
             raise AssertionError(f"{name} {what}: differs from the int8 kernel on the same planes")
 
     def scaled_mm_yardstick(self, name, operand_pairs):
@@ -966,7 +1110,7 @@ class KernelChecks:
                     if not prepared:
                         want = composed(out_dd)
                         pairs = zip(got, want) if complex_ else [(got, want)]
-                        if not all(torch.equal(g, w) for g, w in pairs):
+                        if not all(same_bits(g, w) for g, w in pairs):
                             raise AssertionError(f"{name} {label} tile {tile}: the megakernel differs "
                                                  "from the 4-launch composition")
                     if all_tiles:
@@ -1100,6 +1244,7 @@ class KernelChecks:
                     self.time_tile("int8_mod_gemm", tile, lambda: ig.int8_mod_gemm_batched(
                         ares[0], bres[0], moduli=mods, tile=tile), first, 5)
                 self.int_mm_yardstick("int8_mod_gemm", [(ares[0][l], bres[0][l]) for l in range(n_mod)])
+                self.int8_global_ms(mods, m, k, n)
             f8 = self.f8
             fp8_t = None
             if timed:
@@ -1124,10 +1269,9 @@ class KernelChecks:
             garner_t = None
             if timed and out_dd == complex_:
                 numel = e_res.shape[0] * m * n
-                digit_ops = 8 * n_mod * (n_mod - 1) // 2 + 30 * n_mod + 4
                 garner_t = (f"S={e_res.shape[0]} {m}x{n} N={n_mod} out_dd={out_dd}",
                             numel * (n_mod + (8 if out_dd else 4)) + 8 * (m + n),
-                            numel * digit_ops, F32_OPS_S, 10)
+                            numel * garner_flops(n_mod, out_dd), F32_OPS_S, 10)
             self.compare(
                 "crt_garner",
                 lambda: cg.crt_garner(e_res, e_mu, e_nu, ctx, out_dd=out_dd),
@@ -1152,7 +1296,7 @@ def end_to_end_cpu_parity(rng, dev, GemmPolicy, linalg):
             on_card = getattr(linalg, routine)(a, b, policy=pol)
             on_cpu = getattr(linalg, routine)(a, b, policy=pol, device="cpu")
             what = f"{routine} {execution} {mode} {formulation if on_cpu.is_complex() else 'real'} {SMALL}^3"
-            if on_card.device.type != dev.type or not torch.equal(on_card.cpu(), on_cpu):
+            if on_card.device.type != dev.type or not same_bits(on_card.cpu(), on_cpu):
                 raise AssertionError(f"{what}: the card differs from device='cpu'")
             print(f"  {what}: card == cpu, bitwise", flush=True)
 
@@ -1259,7 +1403,7 @@ def fused_main_path(results, GemmPolicy, linalg, kernels):
         check_launches(kernels, before, expect, 1 + reps, f"fused {routine} {size}^3",
                        model_launches("fused", default_moduli(a), a.is_complex()))
         r["fused_ms"] = ms
-        if not (torch.equal(first, r["y"]) and torch.equal(y, r["y"])):
+        if not (same_bits(first, r["y"]) and same_bits(y, r["y"])):
             raise AssertionError(f"fused {routine} {size}^3: differs from the kernel execution")
         rel = rel_error(y, a, b)
         flops = r["flops"]
@@ -1291,7 +1435,7 @@ def launch_bound_sgemm(rng, dev, GemmPolicy, linalg):
             linalg.sgemm(a, b, policy=pol)
             ys[execution], t = timed_calls(lambda: linalg.sgemm(a, b, policy=pol), LAUNCH_BOUND_REPS)
             ms.setdefault(execution, []).append(t)
-        if not torch.equal(ys["fused"], ys["kernel"]):
+        if not same_bits(ys["fused"], ys["kernel"]):
             raise AssertionError(f"sgemm {size}^3: fused differs from kernel")
         out[size] = (min(ms["fused"]), min(ms["kernel"]))
         print(f"  sgemm {size}^3 fast: fused_ms={out[size][0]:.4f} (1 launch) kernel_ms={out[size][1]:.4f} "
@@ -1317,7 +1461,7 @@ def fp8_main_path(results, GemmPolicy, linalg, kernels):
                        f"fp8 {routine} {size}^3",
                        model_launches("fp8", default_moduli(a), a.is_complex()))
         r["fp8_ms"] = ms
-        if not (torch.equal(first, r["y"]) and torch.equal(y, r["y"])):
+        if not (same_bits(first, r["y"]) and same_bits(y, r["y"])):
             raise AssertionError(f"fp8 {routine} {size}^3: differs from the kernel execution")
         rel = rel_error(y, a, b)
         flops = r["flops"]
@@ -1366,7 +1510,7 @@ def serving(rng, dev, GemmPolicy, linalg, kernels):
                                f"{routine} {execution} prepared m={x.shape[0]}",
                                model_launches(execution, default_moduli(w), w.is_complex(), prepared=True))
                 direct, direct_ms = timed_calls(lambda: fn(x, w, policy=pol), 1)
-                if not torch.equal(y, direct):
+                if not same_bits(y, direct):
                     raise AssertionError(f"{routine} {execution} m={x.shape[0]}: prepared differs from unprepared")
                 print(f"  {routine} {execution} request m={x.shape[0]}: prepared_ms={ms:.3f} "
                       f"unprepared_ms={direct_ms:.3f} launches={sum(expect[execution, w.is_complex()].values())} "
@@ -1423,7 +1567,7 @@ def tuning(results, GemmPolicy, linalg, kernels):
                 what = f"calibrated {execution} {routine} {size}^3"
                 check_launches(kernels, before, path_expect(execution, a.is_complex()), 4, what,
                                model_launches(execution, default_moduli(a), a.is_complex()))
-                if not (torch.equal(first, r["y"]) and torch.equal(y, r["y"])):
+                if not (same_bits(first, r["y"]) and same_bits(y, r["y"])):
                     raise AssertionError(f"{what}: differs from the uncalibrated output")
                 base_ms = r["kernel_ms" if execution == "kernel" else f"{execution}_ms"]
                 print(f"  {routine} {size}^3 fast {execution} calibrated: emulated_ms={ms:.3f} "
@@ -1458,7 +1602,7 @@ def attention_prefill(full, kernels):
     want = {name: 4 if name == "flash_attention" else 0 for name in counts}
     if counts != want:
         raise AssertionError(f"attention prefill: launches {counts}, expected {want}")
-    if not (torch.equal(first, checked) and torch.equal(y, checked)):
+    if not (same_bits(first, checked) and same_bits(y, checked)):
         raise AssertionError("attention prefill: differs from the output phase 2 held against the plain version")
     b, s, h, _ = q.shape
     _, flop = attention_work(q, k, True)
@@ -1519,8 +1663,11 @@ def main() -> int:
     checks.load_paths("fp8_karatsuba")
     checks.load_paths("fp8_mod_gemm")
     checks.load_paths("karatsuba_fused")
+    checks.load_paths("int8_mod_gemm")
     checks.residue_cast_cases()
+    checks.garner_cases()
     checks.karatsuba_worst_case()
+    checks.int8_worst_case()
     checks.clusters()
     checks.megakernels((MAIN, MAIN, MAIN), np.float32, 8, chunk_limit=1 << 17, timed=True)
     checks.megakernels((MAIN, MAIN, MAIN), np.complex128, 14, chunk_limit=1 << 17, timed=True)
@@ -1535,9 +1682,10 @@ def main() -> int:
 
     print("phase 3b: kernel main path", flush=True)
     counts, results = main_path(rng, dev, GemmPolicy, linalg, kernels)
-    tma = {"karatsuba_fused": kernels.karatsuba_fused.karatsuba_mod_gemm_batched.tma_launches}
-    print(f"  kernel main-path launches: {counts} (karatsuba_fused by TMA: {tma['karatsuba_fused']})",
-          flush=True)
+    tma = {"karatsuba_fused": kernels.karatsuba_fused.karatsuba_mod_gemm_batched.tma_launches,
+           "int8_mod_gemm": kernels.int8_mod_gemm.int8_mod_gemm_batched.tma_launches}
+    print(f"  kernel main-path launches: {counts} (by TMA: karatsuba_fused {tma['karatsuba_fused']}, "
+          f"int8_mod_gemm {tma['int8_mod_gemm']})", flush=True)
 
     print("phase 3c: fused main path", flush=True)
     fused_counts = fused_main_path(results, GemmPolicy, linalg, kernels)
@@ -1588,6 +1736,7 @@ def main() -> int:
             "scaled_mm_ms": r.get("scaled_mm_ms"),
             "kernel_path_ms": r.get("kernel_path_ms"),
             "cols_ms": r.get("cols_ms"),
+            "global_ms": r.get("global_ms"),
             "clusters": r.get("clusters"),
             "f32": r.get("f32"),
             "max_abs_err_by_type": r.get("max_abs_err_by_type"),

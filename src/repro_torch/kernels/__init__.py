@@ -23,6 +23,7 @@ def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
     fp8_mod_gemm.fp8_mod_gemm_batched.tma_launches = 0
+    int8_mod_gemm.int8_mod_gemm_batched.tma_launches = 0
     fp8_mod_gemm.fp8_karatsuba_mod_gemm_batched.tma_launches = 0
     karatsuba_fused.karatsuba_mod_gemm_batched.tma_launches = 0
 

@@ -133,8 +133,8 @@ def cluster_launch_info(name: str, tile, n_mod: int, n_fields: int) -> list[int]
 
 def uses_tma(name: str, ar, ai, br, bi) -> bool:
     """Whether the TMA kernel of source `name` (`karatsuba_fused`,
-    `fp8_karatsuba`, or `fp8_mod_gemm`, which passes its one A and one B
-    twice) loads these (card) operands by TMA: the rule of
+    `fp8_karatsuba`, or `fp8_mod_gemm` or `int8_mod_gemm`, which pass their
+    one A and one B twice) loads these (card) operands by TMA: the rule of
     `csrc/hopper.cuh`, read through the C entry `repro_uses_tma` that each
     of those sources defines (k and n multiples of 16, every operand
     16-byte aligned), which shape and alignment alone decide."""

@@ -8,8 +8,10 @@ Output is f32 (m, n), or the (2, m, n) double-single pair with `out_dd`
 (f64-shaped output); a (S, N, m, n) residue stack reconstructs S outputs
 sharing the scale exponents in one launch.
 
-On CUDA tensors `crt_garner` launches `csrc/crt_garner.cu`; on CPU tensors
-it runs `crt_garner_plain`.
+On CUDA tensors `crt_garner` launches `csrc/crt_garner.cu`, which takes
+the same digits by the mixed-radix form (`route_tables`) without a
+division, FRND or int-to-float conversion, bit for bit; on CPU tensors it
+runs `crt_garner_plain`.
 """
 from __future__ import annotations
 
@@ -44,6 +46,36 @@ def _weight_table(ctx: CRTContext) -> np.ndarray:
     return tab
 
 
+def _sym(v: int, p: int) -> int:
+    r = v % p
+    return r - p if r > (p - 1) // 2 else r
+
+
+def route_tables(ctx: CRTContext) -> tuple[np.ndarray, np.ndarray]:
+    """The host tables of the CUDA kernels' Garner route (`crt_garner.cu`,
+    and the megakernels through `garner_tile.cuh`).
+
+    `coef` (N, N) int32: coef[u, t] is the symmetric coefficient of digit u
+    in digit t's sum, -g_t M_u mod p_t for u < t and g_t = M_t^-1 mod p_t
+    at u = t (of x_t), 0 below the diagonal; M_u = prod_{v<u} p_v.  Then
+    d_t = sym_mod(sum_{u<=t} coef[u, t] y_u, p_t) are the balanced
+    mixed-radix digits, which are the Garner recursion's.  `split` (N, 2)
+    f32: Dekker's split of each weight's high word (`_weight_table`), in
+    the reference's f32 op order (core/expansion.py `_split`)."""
+    p = ctx.moduli
+    radix = [math.prod(p[:u]) for u in range(ctx.n)]  # M_u
+    coef = np.zeros((ctx.n, ctx.n), dtype=np.int32)
+    for t in range(ctx.n):
+        g = pow(radix[t], -1, p[t])
+        coef[t, t] = _sym(g, p[t])
+        for u in range(t):
+            coef[u, t] = _sym(-g * radix[u], p[t])
+    hi = _weight_table(ctx)[:, 0]
+    c = np.float32(4097.0) * hi
+    ah = c - (c - hi)
+    return coef, np.stack([ah, hi - ah], axis=1)
+
+
 def fma_f32(a: float, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """a * b + c for f32 operands with ONE rounding, as a fused multiply-add.
 
@@ -56,6 +88,20 @@ def fma_f32(a: float, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (c.double() + float(a) * b.double()).to(torch.float32)
 
 
+def garner_digits(planes, ctx):
+    """The Garner digits of N f32 residue tensors (exact f32 integer
+    arithmetic, all values < 2^17), in the reference's recursion."""
+    moduli = ctx.moduli
+    digits = []
+    for t in range(ctx.n):
+        pf, half = float(moduli[t]), float((moduli[t] - 1) // 2)
+        r = planes[t]
+        for s in range(t):
+            r = sym_mod_f32((r - digits[s]) * float(ctx.garner_inv[s, t]), pf, half)
+        digits.append(r)
+    return digits
+
+
 def garner_tile(planes, rr, cc, *, ctx, out_dd):
     """Garner digits -> double-single value -> inverse scaling.
 
@@ -63,16 +109,8 @@ def garner_tile(planes, rr, cc, *, ctx, out_dd):
     the broadcast-ready inverse-scale factor products.  Returns the f32
     value, or the (hi, lo) double-single pair when `out_dd`.
     """
-    moduli = ctx.moduli
     n = ctx.n
-    # --- Garner digits (exact f32 integer arithmetic, all values < 2^17) ---
-    digits = []
-    for t in range(n):
-        pf, half = float(moduli[t]), float((moduli[t] - 1) // 2)
-        r = planes[t]
-        for s in range(t):
-            r = sym_mod_f32((r - digits[s]) * float(ctx.garner_inv[s, t]), pf, half)
-        digits.append(r)
+    digits = garner_digits(planes, ctx)
     # --- digits -> value, double-single accumulation, MS digit first ---
     wt = _weight_table(ctx)
     hi = torch.zeros_like(digits[0])
@@ -114,7 +152,7 @@ def crt_garner_plain(e_res, e_mu, e_nu, ctx, *, out_dd):
 def _entry():
     fn = build.library("crt_garner").crt_garner_launch
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int] + [
-        ctypes.c_longlong] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+        ctypes.c_longlong] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
     return fn
 
@@ -128,12 +166,12 @@ def _launch(e_res, e_mu, e_nu, ctx, *, out_dd):
     shape = (s, 2, m, n) if out_dd else (s, m, n)
     out = torch.empty(shape, dtype=torch.float32, device=e_res.device)
     mod_arr = np.ascontiguousarray(ctx.moduli, dtype=np.int32)
-    inv = np.ascontiguousarray(ctx.garner_inv, dtype=np.int32)
+    coef, split = (np.ascontiguousarray(t) for t in route_tables(ctx))
     weights = np.ascontiguousarray(_weight_table(ctx))
     status = _entry()(
         e_res.data_ptr(), r1.data_ptr(), r2.data_ptr(), c1.data_ptr(), c2.data_ptr(),
         out.data_ptr(), s, n_mod, m, n, int(out_dd),
-        mod_arr.ctypes.data, inv.ctypes.data, weights.ctypes.data,
+        mod_arr.ctypes.data, coef.ctypes.data, weights.ctypes.data, split.ctypes.data,
         torch.cuda.current_stream(e_res.device).cuda_stream,
     )
     build.check_launch("crt_garner", status)

@@ -16,18 +16,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Canonical symmetric residue of an f32 integer |v| <~ 2^24 by the
-// reciprocal trick of the reference (kernels/common.py sym_mod_f32): the
-// guess n = rint(v * (1/p)) is within +/-1 of the quotient, and the two
-// corrections make the result exact.
-__device__ __forceinline__ float sym_mod_f32(float v, float p, float half, float recip) {
-  float n = rintf(v * recip);
-  float r = v - n * p;
-  if (r > half) r -= p;
-  if (r < -half) r += p;
-  return r;
-}
-
 // Canonical symmetric residue of any int32: C's % keeps the sign of v, one
 // correction moves it into [-(p-1)/2, (p-1)/2].  The residue is unique, so
 // this exact integer route gives the bits of the reference's f32 route.

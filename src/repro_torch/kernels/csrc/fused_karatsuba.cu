@@ -461,12 +461,12 @@ extern "C" int fused_karatsuba_launch(const void* ar, const void* ai, const void
                                       const void* c1, const void* c2, void* out_r, void* out_i,
                                       int m, int n, int k, int chunk_limit, int out_dd, int n_mod,
                                       int n_limbs, int bm, int bn, int bk, const int* moduli,
-                                      const float* radix, const int* garner_inv,
-                                      const float* weights, void* stream) {
+                                      const float* radix, const int* coef,
+                                      const float* weights, const float* split, void* stream) {
   CastParams cp;
   GarnerParams gp;
   if (!make_cast_params(cp, n_mod, n_limbs, moduli, radix) ||
-      !make_garner_params(gp, n_mod, moduli, garner_inv, weights) || chunk_limit < 1 ||
+      !make_garner_params(gp, n_mod, moduli, coef, weights, split) || chunk_limit < 1 ||
       !fma_moduli_ok(n_mod, moduli)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,13 +1,13 @@
 // Hopper (sm_90a) primitives shared by the port's warp-specialised kernels
 // (flash_attention.cu, fp8_karatsuba.cu, fp8_mod_gemm.cu,
-// karatsuba_fused.cu) and its cluster kernels (fused_karatsuba.cu and
-// fused_mod_gemm.cu through residue_fma.cuh): mbarriers, TMA loads, the
-// tensor-map encoder and the 3-D int8 tensor map with its TMA rule
-// (`uses_tma`, and `REPRO_USES_TMA_ENTRY`, its C entry), wgmma shared-memory
-// descriptors, the swizzled byte layout they name and the wgmma fence /
-// commit / wait, masked 4-byte global loads, shared-memory loads and
-// stores by address, and the
-// thread-block-cluster barrier, launch configuration and
+// int8_mod_gemm.cu, karatsuba_fused.cu), its cluster kernels
+// (fused_karatsuba.cu and fused_mod_gemm.cu through residue_fma.cuh) and
+// crt_garner.cu: mbarriers, TMA loads, the tensor-map encoder and the 3-D
+// int8 tensor map with its TMA rule (`uses_tma`, and `REPRO_USES_TMA_ENTRY`,
+// its C entry), wgmma shared-memory descriptors, the swizzled byte layout
+// they name, the wgmma fence / commit / wait and the s8 wgmma products,
+// masked 4-byte global loads, shared-memory loads and stores by address,
+// and the thread-block-cluster barrier, launch configuration and
 // distributed-shared-memory stores.
 #pragma once
 
@@ -150,7 +150,7 @@ inline bool tensor_map(CUtensorMap* map, const void* ptr, int inner, int outer, 
 
 // The C entry `repro_uses_tma` of the rule, which each kernel source that
 // loads by TMA expands once (fp8_karatsuba.cu, fp8_mod_gemm.cu,
-// karatsuba_fused.cu; the wrappers read it through `build.uses_tma`): whether
+// int8_mod_gemm.cu, karatsuba_fused.cu; the wrappers read it through `build.uses_tma`): whether
 // a launch on operands (a0, a1) (m, k) and (b0, b1) (k, n) takes the TMA path
 // (1) or the global-load path (0); a kernel of one A and one B operand passes
 // each twice.
@@ -231,6 +231,58 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D += A B on one m64n{N}k32 s8 step (karatsuba_fused.cu, int8_mod_gemm.cu): A and B from shared memory, both
+// K-major (8-bit types take no transpose), int32 accumulators.
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, 1;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),
+        "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]),
+        "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b));
+}
+
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, 1;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),
+        "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]),
+        "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]),
+        "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]),
+        "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t a, uint64_t b) {
+  if constexpr (N == 64) wgmma_s8_n64(d, a, b);
+  else wgmma_s8_n128(d, a, b);
+}
+
+// keep the compiler from moving reads or writes of the accumulators across
+// the wgmma issue and wait instructions
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // ---- thread-block clusters ---------------------------------------------------

@@ -7,7 +7,11 @@ Port of `repro.kernels.int8_mod_gemm`:
   launch).  The optional `carry` (N, m, n) int8 residue stack is folded
   into the epilogue reduction, out = sym_mod(acc + carry, p): K-chunked
   products thread the previous chunk's residues through it.  On CUDA
-  tensors it launches `csrc/int8_mod_gemm.cu`; on CPU tensors it runs
+  tensors it launches `csrc/int8_mod_gemm.cu` (s8 `wgmma` in 4 x 1
+  thread-block clusters that share B's transpose; it loads by TMA when k
+  and n are multiples of 16 and both operands 16-byte aligned, else its
+  threads load from global memory, and the wrapper counts the TMA launches
+  in `.tma_launches` beside `.launches`); on CPU tensors it runs
   `int8_mod_gemm_plain`.
 * `fused_mod_gemm`, the whole emulated GEMM in one launch: the residue
   cast of A (and of B, unless its planes come pre-cast) as prologue, the N
@@ -40,7 +44,7 @@ from .common import (
     static_mod_params,
     sym_mod_int32_dyn,
 )
-from .crt_garner import _inverse_scales, _weight_table, garner_scaled
+from .crt_garner import _inverse_scales, _weight_table, garner_scaled, route_tables
 
 
 def int8_mod_gemm_plain(a, b, *, moduli, carry=None):
@@ -110,11 +114,13 @@ def int8_mod_gemm_batched(
     if on_card(*tensors):
         out = launch_mod_gemm("int8_mod_gemm", a, b, moduli=moduli, carry=carry, tile=tile)
         int8_mod_gemm_batched.launches += 1
+        int8_mod_gemm_batched.tma_launches += build.uses_tma("int8_mod_gemm", a, a, b, b)
         return out
     return int8_mod_gemm_plain(a, b, moduli=moduli, carry=carry)
 
 
 int8_mod_gemm_batched.launches = 0
+int8_mod_gemm_batched.tma_launches = 0  # of them, those that loaded by TMA
 
 
 # --------------------------------------------------------------- megakernel
@@ -144,12 +150,16 @@ def fused_mod_gemm_plain(a, b, e_mu, e_nu, ctx, *, n_limbs, out_dd=False, b_res=
 
 def fused_tables(ctx: CRTContext, n_limbs: int) -> dict[str, np.ndarray]:
     """The host tables a megakernel copies into its parameters: moduli,
-    limb radix, Garner inverses and the double-single weights."""
+    limb radix, the Garner digits' mixed-radix coefficients
+    (`crt_garner.route_tables`, integers), the double-single weights and
+    the split of each weight's high word (`route_tables`)."""
+    coef, split = route_tables(ctx)
     return {
         "moduli": np.ascontiguousarray(ctx.moduli, dtype=np.int32),
         "radix": np.ascontiguousarray(limb_radix_f32(ctx.moduli, n_limbs)),
-        "inv": np.ascontiguousarray(ctx.garner_inv, dtype=np.int32),
+        "coef": np.ascontiguousarray(coef),
         "weights": np.ascontiguousarray(_weight_table(ctx)),
+        "split": np.ascontiguousarray(split),
     }
 
 
@@ -172,7 +182,7 @@ def ptr(t: torch.Tensor | None):
 @functools.cache
 def _fused_entry():
     fn = build.library("fused_mod_gemm").fused_mod_gemm_launch
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 5
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 6
     fn.restype = ctypes.c_int
     return fn
 

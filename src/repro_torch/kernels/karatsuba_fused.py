@@ -188,7 +188,7 @@ def fused_karatsuba_mod_gemm_plain(ar, ai, br, bi, e_mu, e_nu, ctx, *, n_limbs, 
 @functools.cache
 def _fused_entry():
     fn = build.library("fused_karatsuba").fused_karatsuba_launch
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 5
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 6
     fn.restype = ctypes.c_int
     return fn
 

@@ -1,4 +1,4 @@
-"""The schedules of the two int8 Hopper kernels, modelled on the CPU from
+"""The schedules of the three int8 Hopper kernels, modelled on the CPU from
 their sources.
 
 * `csrc/fused_mod_gemm.cu`, the real megakernel: its shared memory (the
@@ -12,6 +12,12 @@ their sources.
   of the swizzled tiles TMA writes, and (BR+BI) mod p on B's transpose, by
   a division-free integer route; and the transpose must write every B
   element once, where the wgmma descriptor reads it.
+* `csrc/int8_mod_gemm.cu`, the int8 real kernel on wgmma: its tiles are
+  the compiled ones, its ring fits the shared memory, the warps that take
+  slices in turn are no more than its stages on either load path, its
+  cluster's shares of B cover the tile, its transpose writes every B
+  element once where the descriptor reads it, and its int32 accumulators
+  stay exact to k = 2^17.
 
 Constants, tiles and the op sequence are read from the sources; the models
 run in numpy, exactly (int64 / uint64), and are held bitwise against the
@@ -308,3 +314,188 @@ def test_accumulators_stay_below_2_31_at_k_2_17(case):
         np.testing.assert_array_equal(np.stack(out_i), want[1].numpy())
     if case == "-127":
         assert 127 * 127 * k <= INT32_MAX < 128 * 128 * k  # the bound is tight: k = 2^17 is the limit
+
+
+# ------------------------------------ int8_mod_gemm: the real product on wgmma
+
+INT8 = CSRC / "int8_mod_gemm.cu"
+
+
+def int8_layout():
+    """(CM, CN) of int8_mod_gemm.cu."""
+    return constant(INT8, r"constexpr int CM = (\d+), CN = (\d+);")
+
+
+def test_int8_tiles_are_the_compiled_ones():
+    found = tiles(INT8)
+    assert [t[:3] for t in found] == list(COMPILED_TILES["kernel", "real"])
+    assert found[0][:3] == (128, 128, 64) and len(found) >= 3
+    assert all(t[0] in (64, 128) and t[3] >= 3 for t in found)  # one or two wgmma m64 row blocks; rings of >= 3
+    src = INT8.read_text()
+    assert "constexpr uint32_t SBO = 8 * BK;" in src
+    assert "LAYOUT = BK == 128 ? 1 : 2;" in src
+    assert "wgmma_s8<BN>(acc, a0 + st + 2 * q, b0 + st + 2 * q);" in src
+
+
+def test_int8_shared_memory_fits_every_tile():
+    """The ring of ST stages (A and B tiles, the raw B share) and its 4 ST
+    mbarriers, with 1024 bytes of alignment, fit the 232,448 bytes a
+    block may use, at every compiled tile (the source's rule)."""
+    src = INT8.read_text()
+    for line in ("STAGE = A_TILE + B_TILE;", "RAW_B = BK * B_COLS;", "RAW_OFF = ST * STAGE;",
+                 "BAR_OFF = RAW_OFF + ST * RAW_B;", "BYTES = 1024 + BAR_OFF + 8 * 4 * ST;"):
+        assert line in src, line
+    assert constant(INT8, r"constexpr int SMEM_MAX = (\d+);") == (SMEM_BLOCK,)
+    cm, _ = int8_layout()
+    for bm, bn, bk, st in tiles(INT8):
+        total = 1024 + st * (bm * bk + bn * bk) + st * bk * (bn // cm) + 32 * st
+        assert total <= SMEM_BLOCK, (bm, bn, bk, st, total)
+
+
+def test_int8_cluster_shares_cover_the_tiles():
+    """The CM blocks of a cluster column transpose BN / CM columns each,
+    a whole number of 16-byte TMA box rows, and together the block's BN."""
+    cm, cn = int8_layout()
+    assert cn == 1
+    for _, bn, bk, _ in tiles(INT8):
+        cols = bn // cm
+        assert cols * cm == bn and cols % 16 == 0 and cols % 4 == 0
+        assert bk % 4 == 0
+
+
+@pytest.mark.parametrize("tile", tiles(INT8), ids=lambda t: "x".join(map(str, t[:3])))
+def test_int8_b_transpose_is_a_bijection_onto_the_descriptor_layout(tile):
+    """The map of a slice's preparing warp from raw B (k, n) of every
+    block's share to a byte of the K-major [BN][BK] tile (lane l takes the
+    4 x 4 blocks l + 32 i): each element lands once, at the address the
+    wgmma descriptor (K-major, 8-row groups SBO = 8 BK apart, the hardware
+    swizzle) reads element (n, k) from."""
+    _, bn, bk, _ = tile
+    cm, _ = int8_layout()
+    src = INT8.read_text()
+    assert "B_ITERS = B_BLOCKS / 32;" in src and "B_BLOCKS = (B_COLS / 4) * (BK / 4);" in src
+    assert "const int b = lane + 32 * i;" in src
+    assert "nb = b % (L::B_COLS / 4), kb = b / (L::B_COLS / 4);" in src
+    assert "st_shared(stage + L::A_TILE + swizzled<BK>(b_col0 + 4 * nb + j4, 4 * kb), wb[j4]);" in src
+    b_cols = bn // cm
+    blocks = (b_cols // 4) * (bk // 4)
+    assert blocks % 32 == 0
+    offsets = swizzle_offsets(bn, bk)
+    seen = np.full(bn * bk, -1, np.int64)
+    for cy in range(cm):
+        for lane in range(32):
+            for i in range(blocks // 32):
+                b = lane + 32 * i
+                nb, kb = b % (b_cols // 4), b // (b_cols // 4)
+                for j4 in range(4):
+                    n = cy * b_cols + 4 * nb + j4
+                    base = int(offsets[n, 4 * kb])
+                    for r in range(4):
+                        assert (base + r) // 16 == base // 16, "a column's bytes leave their 16-byte chunk"
+                        assert seen[base + r] == -1, "two elements on one byte"
+                        seen[base + r] = n * bk + 4 * kb + r
+    assert (seen >= 0).all(), "a byte of the tile is never written"
+    lin = np.arange(bn * bk)
+    want = np.empty_like(seen)
+    want[address_swizzle(lin, bk)] = lin
+    np.testing.assert_array_equal(seen, want)
+
+
+def int8_prep_warps(tma: bool, stages: int) -> int:
+    """The preparing warps that take slices in turn on a load path at a
+    ring of `stages`, by the source's rule: on the TMA path the two after
+    the load and push warps; on the global-load path the six of its two
+    preparing warpgroups after those, and the load warp (idle there) too
+    where the ring has seven stages or more."""
+    src = INT8.read_text()
+    assert "static constexpr int PREP_WGS = TMA ? 1 : 2;" in src
+    assert "static constexpr int PREP_WARPS = TMA ? 2 : (ST >= 7 ? 7 : 6);" in src
+    assert "if (threadIdx.x < 64 && (TMA || threadIdx.x >= 32 || L::PREP_WARPS < 7)) {" in src
+    assert "pw = threadIdx.x >= 64 ? (threadIdx.x - 64) >> 5 : L::PREP_WARPS - 1;" in src
+    assert "for (int j = pw; j < S; j += L::PREP_WARPS) {" in src
+    if tma:
+        return 2
+    warps = 7 if stages >= 7 else 6
+    # the warps that prepare: every warp of the two warpgroups but the push
+    # warp, and the load warp only with seven
+    assert warps <= 2 * 4 - 1
+    return warps
+
+
+def parity_wait_is_sound(warps: int, stages: int, slices: int = 64) -> bool:
+    """Whether every preparing warp's stage wait is sound when `warps`
+    warps take slices in turn through a ring of `stages`.  The warp of
+    slice j waits on the parity of the phase in which slice j - stages was
+    read; all it knows is that slice j - warps - stages was read (its own
+    last wait; readers release in order).  A parity wait passes at once
+    when the barrier is two phases behind, so slice j - 2 stages must be
+    known read."""
+    for j in range(slices):
+        known = j - warps - stages  # read before this warp's last wait returned
+        if j - 2 * stages >= 0 and known < j - 2 * stages:
+            return False
+    return True
+
+
+@pytest.mark.parametrize("tma", [True, False], ids=["tma", "global"])
+@pytest.mark.parametrize("tile", tiles(INT8), ids=lambda t: "x".join(map(str, t[:3])))
+def test_int8_turn_taking_warps_fit_the_ring(tile, tma):
+    """The warps that take slices in turn are no more than the ring's
+    stages, on both load paths at every compiled tile (the source's
+    static_assert), and so every stage wait is sound; a control: more warps
+    than stages is not."""
+    assert 'static_assert(PREP_WARPS <= ST, "' in INT8.read_text()
+    warps, stages = int8_prep_warps(tma, tile[3]), tile[3]
+    assert warps <= stages, (tile, warps)
+    assert parity_wait_is_sound(warps, stages)
+    assert not parity_wait_is_sound(stages + 1, stages)
+
+
+@pytest.mark.parametrize("tile", tiles(INT8), ids=lambda t: "x".join(map(str, t[:3])))
+def test_int8_a_chunks_cover_the_tile_on_the_global_path(tile):
+    """On the global-load path a slice's preparing warp stores A's 16-byte
+    chunks lane + 32 i at their swizzled places: every byte of the
+    [BM][BK] tile once, where TMA would have put it."""
+    bm, _, bk, _ = tile
+    src = INT8.read_text()
+    assert "A_ITERS = A_CHUNKS / 32" in src and "const int c = lane + 32 * i;" in src
+    assert "ra = c / (BK / 16), ca = (c % (BK / 16)) * 16;" in src
+    assert "st_shared4(stage + swizzled<BK>(ra, ca), make_uint4(w[i][0], w[i][1], w[i][2], w[i][3]));" in src
+    assert "load_chunk(w[i], op.a + a_plane + static_cast<size_t>(gm) * k + kk, gm < m ? k - kk : 0, op.a_width);" in src
+    offsets = swizzle_offsets(bm, bk)
+    seen = np.zeros(bm * bk, np.int64)
+    for c in range(bm * bk // 16):
+        ra, ca = c // (bk // 16), (c % (bk // 16)) * 16
+        np.testing.assert_array_equal(offsets[ra, ca:ca + 16], offsets[ra, ca] + np.arange(16))
+        seen[offsets[ra, ca]:offsets[ra, ca] + 16] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("case", ["-127", "largest residues"])
+def test_int8_accumulators_stay_below_2_31_at_k_2_17(case):
+    """At k = 2^17, every tile: planes of -127 (every product 127^2) and
+    every residue at its largest magnitude ((p - 1) / 2 against -(p - 1) /
+    2); every partial sum of a product warpgroup's k32 steps stays below
+    2^31, and the modelled epilogue (+ carry, the symmetric mod) is
+    int8_mod_gemm_plain's, bitwise."""
+    from repro_torch.kernels.int8_mod_gemm import int8_mod_gemm_plain
+
+    mods = make_crt_context(8).moduli
+    k = K_MAX
+    if case == "-127":
+        a = np.full((8, 2, k), -127, np.int8)
+        b = np.full((8, k, 3), -127, np.int8)
+    else:
+        half = np.asarray([(p - 1) // 2 for p in mods], np.int8)[:, None, None]
+        a = np.broadcast_to(half, (8, 2, k)).copy()
+        b = np.broadcast_to(-half, (8, k, 3)).copy()
+    carry = np.asarray([[[(p - 1) // 2] * 3] * 2 for p in mods], np.int8)
+    for _, _, bk, _ in tiles(INT8):
+        out = []
+        for l, p in enumerate(mods):
+            acc, largest = accumulate(a[l], b[l], bk)
+            assert largest <= INT32_MAX, (bk, p, largest)
+            out.append(sym_mod(acc + carry[l], p))
+        want = int8_mod_gemm_plain(*(torch.from_numpy(x) for x in (a, b)), moduli=mods,
+                                   carry=torch.from_numpy(carry))
+        np.testing.assert_array_equal(np.stack(out), want.numpy())

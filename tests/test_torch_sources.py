@@ -21,8 +21,10 @@ SHARED = {
     "st_shared": r"\bvoid\s+st_shared4?\s*\(\s*uint32_t\s+\w+\s*,",
     "aligned": r"\bbool\s+aligned\s*\(",
     "load_word": r"\buint32_t\s+load_word\s*\(",
+    "wgmma_s8": r"\bvoid\s+wgmma_s8(_n\d+)?\s*\(",
+    "fence_acc": r"\bvoid\s+fence_acc\s*\(",
 }
-TMA_KERNELS = ("fp8_karatsuba", "karatsuba_fused", "fp8_mod_gemm")
+TMA_KERNELS = ("fp8_karatsuba", "karatsuba_fused", "fp8_mod_gemm", "int8_mod_gemm")
 
 
 def code(path) -> str:
@@ -35,7 +37,7 @@ def code(path) -> str:
 @pytest.mark.parametrize("helper", sorted(SHARED))
 def test_tma_helpers_are_defined_once_in_hopper_cuh(helper):
     """Each shared helper is defined in hopper.cuh, and no kernel source
-    defines a copy of its own; the three TMA kernels include hopper.cuh."""
+    defines a copy of its own; the four TMA kernels include hopper.cuh."""
     pattern = SHARED[helper]
     assert re.search(pattern, code(CSRC / "hopper.cuh")), helper
     for path in sorted(CSRC.glob("*.cu")):
@@ -46,7 +48,7 @@ def test_tma_helpers_are_defined_once_in_hopper_cuh(helper):
 
 def test_one_c_entry_for_the_tma_rule():
     """The TMA rule has one C entry, `repro_uses_tma`, written once in
-    hopper.cuh's `REPRO_USES_TMA_ENTRY`, which the three TMA kernels expand
+    hopper.cuh's `REPRO_USES_TMA_ENTRY`, which the four TMA kernels expand
     and no other source does (`build.uses_tma` reads it from the library
     of each)."""
     entries = {path.name: re.findall(r'extern "C" int (\w*uses_tma\w*)', path.read_text())

@@ -48,6 +48,17 @@ PROBE = r"""
 #include "cast_tile.cuh"
 #include "residue_fma.cuh"
 
+// the reference's f32 symmetric mod (kernels/common.py sym_mod_f32): the
+// guess n = rint(v * (1/p)) is within +/-1 of the quotient, and the two
+// corrections make the result exact
+__device__ __forceinline__ float sym_mod_f32(float v, float p, float half, float recip) {
+  float n = rintf(v * recip);
+  float r = v - n * p;
+  if (r > half) r -= p;
+  if (r < -half) r += p;
+  return r;
+}
+
 // the cast by an int32 remainder per limb: limbs as the reference peels
 // them, each limb's residue by sym_mod_i32, the radix sum, the f32 reduce
 __device__ __forceinline__ int8_t cast_residue(float a, float scale, int l, const CastParams& prm) {

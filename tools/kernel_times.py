@@ -5,7 +5,10 @@ the attention kernel and the launch-timing copy kernel of one checkout's
 
 Each GEMM kernel runs at the main path's shape (m = n = k = 4096; N = 8
 moduli real, 14 complex) through its wrapper's plain call, which launches
-the kernel's default tile.  The residue cast runs at the complex main
+the kernel's default tile; the int8 real kernel also at n = 4092
+(`int8_mod_gemm:global`) and at k = 4092 (`int8_mod_gemm:global_k`): not
+multiples of 16, so its global-load path where it has one, A by 16-byte
+loads in the first, by 4-byte words in the second.  The residue cast runs at the complex main
 path's casts (S = 2 stacked 4096 x 4096 f32 parts, N = 14), once with row
 scales (`residue_cast:rows`, scale_axis 0, A's cast) and once with column
 scales (`residue_cast:cols`, B's); the Garner reconstruction at its
@@ -31,7 +34,8 @@ GEMM kernel it times against its plain version, bitwise, at (m, k, n) =
 (257, 1000, 129) and (257, 1024, 144) (ragged edges; k and n off and on
 multiples of 16), the residue cast and the Garner reconstruction at a
 ragged (S, m, k) = (2, 257, 1001) (odd k: the cast's scalar path), both
-scale axes and both outputs, and prints one JSON line: {"src", "card",
+scale axes and both outputs (floating outputs through their integer views,
+`chip_smoke.same_bits`, so a zero's sign counts), and prints one JSON line: {"src", "card",
 "ms": {kernel: ms}, "bitwise": {kernel: bool}}; it exits 1 if a kernel
 disagrees.  `--only NAME [NAME ...]` builds and times only those kernels
 (a tree that differs from another in one source).
@@ -54,13 +58,14 @@ def check(name, rng, dev) -> bool:
     chunk reductions)."""
     import torch
 
+    from chip_smoke import same_bits
     from repro_torch.core.moduli import make_crt_context
     from repro_torch.core.plan import n_limbs_for_ctx
     from repro_torch.kernels import fp8_mod_gemm as f8, int8_mod_gemm as ig, karatsuba_fused as kf
 
     def same(got, want):
         pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
-        return all(torch.equal(g, w) for g, w in pairs)
+        return all(same_bits(g, w) for g, w in pairs)
 
     if name in ("residue_cast", "crt_garner"):
         return check_cast_garner(name, rng, dev)
@@ -123,6 +128,7 @@ def check_cast_garner(name, rng, dev) -> bool:
     (2, 257, 1001), N = 14."""
     import torch
 
+    from chip_smoke import same_bits
     from repro_torch.core.moduli import make_crt_context
     from repro_torch.core.plan import n_limbs_for_ctx
     from repro_torch.kernels import crt_garner as cg, residue_cast as rc
@@ -134,13 +140,13 @@ def check_cast_garner(name, rng, dev) -> bool:
         ok = True
         for x, e, axis in ((xa, e_mu, 0), (xb, e_nu, 1)):
             kw = dict(moduli=ctx.moduli, n_limbs=n_limbs_for_ctx(ctx), scale_axis=axis)
-            ok &= torch.equal(rc.residue_cast(x, *split_scale_exponent(e), **kw),
+            ok &= same_bits(rc.residue_cast(x, *split_scale_exponent(e), **kw),
                               rc.residue_cast_plain(x, *split_scale_exponent(e), **kw))
         return bool(ok)
     e_nu = torch.from_numpy(rng.integers(-30, 30, 1001).astype(np.int32)).to(dev)
     planes = torch.from_numpy(np.stack([rng.integers(-((p - 1) // 2), (p - 1) // 2 + 1, (2, 257, 1001))
                                         for p in ctx.moduli], axis=1).astype(np.int8)).to(dev)
-    return all(torch.equal(cg.crt_garner(planes, e_mu, e_nu, ctx, out_dd=dd),
+    return all(same_bits(cg.crt_garner(planes, e_mu, e_nu, ctx, out_dd=dd),
                            cg.crt_garner_plain(planes, e_mu, e_nu, ctx, out_dd=dd)) for dd in (False, True))
 
 
@@ -180,6 +186,8 @@ def main() -> int:
 
     real, cplx = make_crt_context(8), make_crt_context(14)
     a, b = planes(8, (size, size)), planes(8, (size, size))
+    b_global = planes(8, (size, size - 4))  # n a multiple of 4, not of 16: the global-load path
+    a_k, b_k = planes(8, (size, size - 4)), planes(8, (size - 4, size))  # k a multiple of 4, not of 16
     ar, ai, br, bi = (planes(14, (size, size)) for _ in range(4))
     fa, fb = mant((size, size)), mant((size, size))
     far, fai, fbr, fbi = (mant((size, size)) for _ in range(4))
@@ -193,6 +201,8 @@ def main() -> int:
         "residue_cast:cols": lambda: residue_cast.residue_cast(xb, *sb, scale_axis=1, **cast),
         "crt_garner": lambda: crt_garner.crt_garner(e_res, e_mu, e_nu, cplx, out_dd=True),
         "int8_mod_gemm": lambda: int8_mod_gemm.int8_mod_gemm_batched(a, b, moduli=real.moduli),
+        "int8_mod_gemm:global": lambda: int8_mod_gemm.int8_mod_gemm_batched(a, b_global, moduli=real.moduli),
+        "int8_mod_gemm:global_k": lambda: int8_mod_gemm.int8_mod_gemm_batched(a_k, b_k, moduli=real.moduli),
         "karatsuba_fused": lambda: karatsuba_fused.karatsuba_mod_gemm_batched(ar, ai, br, bi, moduli=cplx.moduli),
         "fused_mod_gemm": lambda: int8_mod_gemm.fused_mod_gemm(
             fa, fb, zeros, zeros, real, n_limbs=n_limbs_for_ctx(real)),
