@@ -117,8 +117,12 @@ failure is caught.
 3. End to end through `repro_torch.linalg`:
    (a) s/d/c/zgemm at 512^3, fast and accu, on `GemmPolicy(execution=
        "kernel")`, `execution="fused"` and `execution="fp8"` (complex also
-       `block_a` and `block_b`): bitwise equal to the same call with
-       device="cpu", which runs the plain versions;
+       `block_a` and `block_b`), on `execution="reference"` (every complex
+       formulation, each CRT method `paper`, `dd` and `garner`) and on
+       `execution="per_modulus_kernel"` (complex `karatsuba` and
+       `block_a`): bitwise equal to the same call with device="cpu", which
+       runs the plain versions (the reference execution is plain PyTorch
+       on either device);
    (b) the kernel main path: s/d/c/zgemm at 4096^3 and zgemm at 8192^3,
        fast mode, `execution="kernel"`.  The launch counters are zeroed
        just before and read just after: each GEMM is exactly 4 launches
@@ -140,7 +144,31 @@ failure is caught.
        `execution="fp8"`, counters zeroed before and read after: exactly 4
        launches per GEMM (cast, cast, one e4m3 product, Garner), bitwise
        equal to (b)'s output, timed beside (b) and cuBLAS, relative error
-       below 1e-4.
+       below 1e-4;
+   (e) the reference execution: (b)'s 4096^3 GEMMs on the same operands
+       with `execution="reference"`, fast, default method ('paper'),
+       counters zeroed before and read after: no kernel launch.  sgemm and
+       cgemm bitwise equal to (b)'s output (the reference holds this at
+       f32 grade); dgemm and zgemm within `core.accuracy.rel_bound` for
+       their routine, mode and N, measured by `core.accuracy.rel_error`
+       against numpy's extended-precision (longdouble) product of
+       REF_ROWS evenly spaced rows.  Timed beside (b) and cuBLAS;
+   (f) the per-modulus execution: the same GEMMs with
+       `execution="per_modulus_kernel"`, counters zeroed before and read
+       after: one product launch per modulus on a grid of one plane, the
+       casts and reconstructions unstacked, 11 / 19 / 13 / 20 launches
+       (`kernel_launch_count(modulus_batched=False)`), every product by
+       TMA, bitwise equal to (b)'s output, timed.  Then sgemm (N = 8) and
+       zgemm (N = 14) at RAGGED, where the one-plane views and k leave
+       TMA (no launch by TMA), and at ALIGNED_RAGGED (every launch by
+       TMA), each bitwise equal to `kernel`;
+   (g) the backward: sgemm and zgemm at 4096^3 on `kernel` with
+       requires_grad on both operands and `backward(g)`: exactly 12
+       launches (three GEMMs of four), x.grad and w.grad bitwise equal to
+       the forward calls on (g, w^T) and (x^T, g) (for zgemm w^H and
+       x^H, `torch.matmul`'s rule), forward + backward timed beside the
+       forward; at 512^3 also on `reference` and `fused`, y and both
+       gradients bitwise equal to device="cpu".
 4. Prepared serving: `prepare_weights({"w": W})` of an 8192 x 8192 W
    (complex128 and float32) on `fused` and on `kernel`, then three requests
    of m = 128, 1024 and 8192 rows each, and on `fp8` one request of m =
@@ -225,6 +253,7 @@ DEEP_RAGGED = (129, 4000, 129)  # k off multiples of 16 and past two turns of ev
 MAIN = 4096                # the main path's m = n = k
 BIG = 8192                 # the largest zgemm of the main path
 SMALL = 512                # the card-vs-cpu end-to-end parity size
+REF_ROWS = {False: 8, True: 4}  # rows of phase 3(e)'s extended-precision check (real, complex)
 RAGGED_CHUNK = 256         # chunk_limit forcing in-kernel reductions at RAGGED
 SERVE_N = 8192             # the prepared weight's k = n
 SERVE_M = (128, 1024, 8192)  # the rows of the serving requests
@@ -1288,14 +1317,22 @@ def end_to_end_cpu_parity(rng, dev, GemmPolicy, linalg):
     for routine, dtype in ROUTINES.items():
         a = phi_matrix(rng, (SMALL, SMALL), PHI, dtype)
         b = phi_matrix(rng, (SMALL, SMALL), PHI, dtype)
-        cases = [(ex, mode, "karatsuba") for ex in ("kernel", "fused", "fp8") for mode in ("fast", "accu")]
-        if np.issubdtype(dtype, np.complexfloating):
-            cases += [(ex, "fast", form) for ex in ("fused", "fp8") for form in ("block_a", "block_b")]
-        for execution, mode, formulation in cases:
-            pol = GemmPolicy(execution=execution, mode=mode, formulation=formulation)
+        complex_ = np.issubdtype(dtype, np.complexfloating)
+        forms = ("karatsuba", "block_a", "block_b") if complex_ else ("karatsuba",)
+        modes = ("fast", "accu")
+        cases = [(ex, mode, "karatsuba", "auto") for ex in ("kernel", "fused", "fp8") for mode in modes]
+        if complex_:
+            cases += [(ex, "fast", form, "auto") for ex in ("fused", "fp8") for form in ("block_a", "block_b")]
+        # the reference execution with every CRT method, and the per-modulus one
+        cases += [("reference", mode, form, method) for mode in modes for form in forms
+                  for method in ("paper", "dd", "garner")]
+        cases += [("per_modulus_kernel", mode, form, "auto") for mode in modes for form in forms[:2]]
+        for execution, mode, formulation, method in cases:
+            pol = GemmPolicy(execution=execution, mode=mode, formulation=formulation, method=method)
             on_card = getattr(linalg, routine)(a, b, policy=pol)
             on_cpu = getattr(linalg, routine)(a, b, policy=pol, device="cpu")
-            what = f"{routine} {execution} {mode} {formulation if on_cpu.is_complex() else 'real'} {SMALL}^3"
+            what = (f"{routine} {execution} {mode} {formulation if complex_ else 'real'}"
+                    f"{' ' + method if execution == 'reference' else ''} {SMALL}^3")
             if on_card.device.type != dev.type or not same_bits(on_card.cpu(), on_cpu):
                 raise AssertionError(f"{what}: the card differs from device='cpu'")
             print(f"  {what}: card == cpu, bitwise", flush=True)
@@ -1476,6 +1513,176 @@ def fp8_main_path(results, GemmPolicy, linalg, kernels):
         if counts[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the fp8 main path")
     return counts
+
+
+def sampled_error(y, a, b):
+    """`core.accuracy.rel_error` (the metric `rel_bound` certifies) on
+    REF_ROWS[complex] evenly spaced rows, against numpy's extended-precision
+    product of those rows (64-bit significands, on the host)."""
+    from repro_torch.core import accuracy
+
+    rows = torch.linspace(0, a.shape[0] - 1, REF_ROWS[a.is_complex()]).round().long().to(a.device)
+    ld = np.clongdouble if a.is_complex() else np.longdouble
+    ref = a[rows].cpu().numpy().astype(ld) @ b.cpu().numpy().astype(ld)
+    ref = torch.from_numpy(ref.astype(np.complex128 if a.is_complex() else np.float64))
+    return accuracy.rel_error(y[rows].cpu(), ref, a[rows].cpu(), b.cpu()), len(rows)
+
+
+def reference_main_path(results, GemmPolicy, linalg, kernels):
+    """Phase 3(e): the reference execution (plain PyTorch in float64, no
+    hand-written kernel) on phase 3(b)'s operands: no launch, s/cgemm
+    bitwise equal to the kernel execution, d/zgemm within `rel_bound`."""
+    from repro_torch.core import accuracy
+
+    pol = GemmPolicy(execution="reference", mode="fast")
+    kernels.reset_launches()
+    for r in results:
+        routine, size, a, b = r["routine"], r["size"], r["a"], r["b"]
+        fn = getattr(linalg, routine)
+        first = fn(a, b, policy=pol)
+        y, ms = timed_calls(lambda: fn(a, b, policy=pol), 3)
+        if any(kernels.launch_counts().values()):
+            raise AssertionError(f"reference {routine} {size}^3: kernel launches {kernels.launch_counts()}")
+        if not same_bits(first, y):
+            raise AssertionError(f"reference {routine} {size}^3: two calls differ")
+        r["reference_ms"] = ms
+        if routine in ("sgemm", "cgemm"):
+            if not same_bits(y, r["y"]):
+                raise AssertionError(f"reference {routine} {size}^3: differs from the kernel execution")
+            check = "== kernel execution, bitwise"
+        else:
+            n_mod = default_moduli(a)
+            err, rows = sampled_error(y, a, b)
+            bound = accuracy.rel_bound(str(a.dtype).removeprefix("torch."), "fast", n_mod, size,
+                                       formulation="karatsuba" if a.is_complex() else None)
+            if not err <= bound:
+                raise AssertionError(f"reference {routine} {size}^3: error {err} over rel_bound {bound}")
+            check = (f"componentwise_err={err:.3e} <= rel_bound(N={n_mod})={bound:.3e} "
+                     f"on {rows} rows against extended precision")
+        flops = r["flops"]
+        print(f"  {routine} {size}^3 fast reference: emulated_ms={ms:.3f} ({flops / ms / 1e9:.2f} TFLOPS) "
+              f"kernel_execution_ms={r['kernel_ms']:.3f} torch.matmul_ms={r['native_ms']:.3f} "
+              f"rel_err={rel_error(y, a, b):.3e} launches/GEMM=0 {check}", flush=True)
+
+
+def product_wrapper(kernels, complex_):
+    """The residue-product kernel wrapper of the kernel and per-modulus executions."""
+    if complex_:
+        return kernels.karatsuba_fused.karatsuba_mod_gemm_batched
+    return kernels.int8_mod_gemm.int8_mod_gemm_batched
+
+
+def per_modulus_path(rng, dev, results, GemmPolicy, linalg, kernels):
+    """Phase 3(f): the per-modulus execution on phase 3(b)'s operands (one
+    product launch per modulus, on a grid of one plane), bitwise equal to
+    the kernel execution, with `kernel_launch_count(modulus_batched=False)`
+    launches; then at RAGGED (global loads) and ALIGNED_RAGGED (TMA).
+    Returns the 4096^3 run's launch counts."""
+    from repro_torch.core import perfmodel
+
+    pol = GemmPolicy(execution="per_modulus_kernel", mode="fast")
+    kernels.reset_launches()
+    for r in results:
+        routine, size, a, b = r["routine"], r["size"], r["a"], r["b"]
+        fn = getattr(linalg, routine)
+        cx, n_mod = a.is_complex(), default_moduli(a)
+        product = product_wrapper(kernels, cx)
+        expect = {"residue_cast": 4 if cx else 2, "karatsuba_fused" if cx else "int8_mod_gemm": n_mod,
+                  "crt_garner": 2 if cx else 1}
+        model = perfmodel.kernel_launch_count(n_mod, "karatsuba" if cx else "real", modulus_batched=False,
+                                              fused_karatsuba=True)
+        before, tma0 = kernels.launch_counts(), product.tma_launches
+        first = fn(a, b, policy=pol)
+        y, ms = timed_calls(lambda: fn(a, b, policy=pol), 3)
+        what = f"per_modulus_kernel {routine} {size}^3"
+        check_launches(kernels, before, expect, 4, what, model)
+        if product.tma_launches - tma0 != 4 * n_mod:
+            raise AssertionError(f"{what}: {product.tma_launches - tma0} of {4 * n_mod} product launches by TMA")
+        if not (same_bits(first, r["y"]) and same_bits(y, r["y"])):
+            raise AssertionError(f"{what}: differs from the kernel execution")
+        r["per_modulus_ms"] = ms
+        flops = r["flops"]
+        print(f"  {routine} {size}^3 fast per_modulus_kernel: emulated_ms={ms:.3f} ({flops / ms / 1e9:.2f} TFLOPS) "
+              f"kernel_execution_ms={r['kernel_ms']:.3f} torch.matmul_ms={r['native_ms']:.3f} "
+              f"launches/GEMM={model} ({expect}, products all by TMA) == kernel execution, bitwise", flush=True)
+    counts = kernels.launch_counts()
+    for shape, by_tma in ((RAGGED, False), (ALIGNED_RAGGED, True)):
+        m, k, n = shape
+        for routine, dtype in (("sgemm", np.float32), ("zgemm", np.complex128)):
+            a = torch.from_numpy(phi_matrix(rng, (m, k), PHI, dtype)).to(dev)
+            b = torch.from_numpy(phi_matrix(rng, (k, n), PHI, dtype)).to(dev)
+            fn = getattr(linalg, routine)
+            product = product_wrapper(kernels, a.is_complex())
+            n_mod = default_moduli(a)
+            launches0, tma0 = product.launches, product.tma_launches
+            y = fn(a, b, policy=pol)
+            launches, tma = product.launches - launches0, product.tma_launches - tma0
+            what = f"per_modulus_kernel {routine} {m}x{k}x{n} N={n_mod}"
+            if launches != n_mod or tma != (n_mod if by_tma else 0):
+                raise AssertionError(f"{what}: {launches} product launches, {tma} by TMA")
+            if not same_bits(y, fn(a, b, policy=GemmPolicy(execution="kernel", mode="fast"))):
+                raise AssertionError(f"{what}: differs from the kernel execution")
+            print(f"  {what}: {launches} one-plane product launches, {tma} by TMA "
+                  f"({'TMA' if by_tma else 'global-load'} path) == kernel execution, bitwise", flush=True)
+    return counts
+
+
+def adjoint(x):
+    """The operand of a cotangent product as the backward forms it:
+    transposed, and conjugated for complex x."""
+    x = x.detach().transpose(-1, -2)
+    return x.conj_physical() if x.is_complex() else x
+
+
+def grads(fn, a, b, g, pol, device=None):
+    """(y, x.grad, w.grad) of fn(x, w) backward with cotangent g on `device`."""
+    x = a.detach().clone().requires_grad_()
+    w = b.detach().clone().requires_grad_()
+    y = fn(x, w, policy=pol, device=device)
+    y.backward(g if device is None else g.to(device))
+    return y.detach(), x.grad, w.grad
+
+
+def backward_path(rng, dev, results, GemmPolicy, linalg, kernels):
+    """Phase 3(g): the emulated matmul's backward.  sgemm and zgemm at
+    MAIN^3 on `kernel` with requires_grad on both operands: exactly 12
+    launches (three GEMMs of four), the gradients bitwise equal to the
+    forward calls on (g, w^T) and (x^T, g) (w^H and x^H for zgemm), timed
+    beside the forward; at SMALL^3 also on `reference` and `fused`, the
+    card bitwise equal to device='cpu'."""
+    pol = GemmPolicy(execution="kernel", mode="fast")
+    for r in results:
+        routine, size, a, b = r["routine"], r["size"], r["a"], r["b"]
+        if routine not in ("sgemm", "zgemm"):
+            continue
+        fn = getattr(linalg, routine)
+        g = torch.from_numpy(phi_matrix(rng, (size, size), PHI, ROUTINES[routine])).to(dev)
+        product = "karatsuba_fused" if a.is_complex() else "int8_mod_gemm"
+        kernels.reset_launches()
+        y, dx, dw = grads(fn, a, b, g, pol)
+        counts = {name: c for name, c in kernels.launch_counts().items() if c}
+        if counts != {"residue_cast": 6, product: 3, "crt_garner": 3}:
+            raise AssertionError(f"backward {routine} {size}^3: launches {counts}, expected three GEMMs of four")
+        if not (same_bits(y, r["y"]) and same_bits(dx, fn(g, adjoint(b), policy=pol))
+                and same_bits(dw, fn(adjoint(a), g, policy=pol))):
+            raise AssertionError(f"backward {routine} {size}^3: a gradient differs from its forward product")
+        _, step_ms = timed_calls(lambda: grads(fn, a, b, g, pol), 3)
+        print(f"  {routine} {size}^3 fast kernel forward+backward: ms={step_ms:.3f} "
+              f"forward_ms={r['kernel_ms']:.3f} ratio={step_ms / r['kernel_ms']:.3f} launches=12 {counts}; "
+              f"x.grad == {routine}(g, w{'^H' if a.is_complex() else '^T'}), "
+              f"w.grad == {routine}(x{'^H' if a.is_complex() else '^T'}, g), bitwise", flush=True)
+    for execution in ("reference", "fused"):
+        pol = GemmPolicy(execution=execution, mode="fast")
+        for routine in ("sgemm", "zgemm"):
+            a, b, g = (torch.from_numpy(phi_matrix(rng, (SMALL, SMALL), PHI, ROUTINES[routine])).to(dev)
+                       for _ in range(3))
+            fn = getattr(linalg, routine)
+            card = grads(fn, a, b, g, pol)
+            cpu = grads(fn, a.cpu(), b.cpu(), g.cpu(), pol, device="cpu")
+            if not all(same_bits(c.cpu(), h) for c, h in zip(card, cpu)):
+                raise AssertionError(f"backward {routine} {execution} {SMALL}^3: the card differs from device='cpu'")
+            print(f"  {routine} {execution} {SMALL}^3 forward+backward: y, x.grad, w.grad card == cpu, bitwise",
+                  flush=True)
 
 
 def serving(rng, dev, GemmPolicy, linalg, kernels):
@@ -1699,6 +1906,18 @@ def main() -> int:
     print(f"  fp8 main-path launches: {fp8_counts} (by TMA: fp8_karatsuba {tma['fp8_karatsuba']}, "
           f"fp8_mod_gemm {tma['fp8_mod_gemm']})", flush=True)
     results = [r for r in results if r["size"] == MAIN]
+    torch.cuda.empty_cache()
+
+    print("phase 3e: reference execution", flush=True)
+    reference_main_path(results, GemmPolicy, linalg, kernels)
+    torch.cuda.empty_cache()
+
+    print("phase 3f: per-modulus execution", flush=True)
+    per_modulus_counts = per_modulus_path(rng, dev, results, GemmPolicy, linalg, kernels)
+    print(f"  per-modulus main-path launches: {per_modulus_counts}", flush=True)
+
+    print("phase 3g: backward", flush=True)
+    backward_path(rng, dev, results, GemmPolicy, linalg, kernels)
     torch.cuda.empty_cache()
 
     print("phase 4: prepared serving", flush=True)

@@ -1,30 +1,39 @@
 """The executor for Ozaki-II emulation plans (real and complex).
 
-The port's copy of the kernel-path part of `repro.core.executor`:
+The port's copy of `repro.core.executor`:
 
-    scale -> residue cast -> residue GEMMs -> Garner reconstruct
+    scale -> quantize -> residue cast -> residue GEMMs
+          -> CRT reconstruct -> exact inverse scaling
 
 parameterized by an :class:`EmulationPlan` and a residue backend supplying
-`cast_stack`, `residue_matmul`, `karatsuba` and `reconstruct_stack` (the
-kernel backend, `repro_torch.kernels.ops.KernelBackend`).  The two
-block-embedding formulations (paper eqs. 7/8) are composed here from
-`residue_matmul`, so all three Fig. 1 strategies run on the kernels.  A
-backend with ``megakernel = True`` (`FusedBackend`) runs the whole chain as
-one `fused_gemm` / `fused_karatsuba_gemm` launch per output-column block
-instead.  `run_plan` batches over leading operand dims with a loop written
-out where the reference uses `jnp.vectorize`.
+`cast`, `residue_matmul`, `karatsuba` and `reconstruct`, and optionally the
+stacked `cast_stack` / `reconstruct_stack` on an (S, ...) leading stack
+that shares scale exponents, which the complex pipeline uses (via
+`_cast_pair` / `_reconstruct_pair`) to cast and reconstruct real and
+imaginary parts in one launch; backends without them make two calls with
+the same bits.  `ReferenceBackend` (here) is plain PyTorch in float64 with
+every CRT method; `repro_torch.kernels.ops` holds the kernel backends.
+The two block-embedding formulations (paper eqs. 7/8) are composed here
+from `residue_matmul`, so every backend runs all three Fig. 1 strategies.
+A backend with ``megakernel = True`` (`FusedBackend`) runs the whole chain
+as one `fused_gemm` / `fused_karatsuba_gemm` launch per output-column
+block instead.  `run_plan` batches over leading operand dims with a loop
+written out where the reference uses `jnp.vectorize`.
 
 Prepared serving: :class:`PreparedOperand` casts a reused operand once and
 `gemm_prepared` multiplies by it.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from . import scaling
+from . import crt, scaling
 from .intmul import int8_matmul
 from .moduli import K_CHUNK_LIMIT, CRTContext, make_crt_context
 from .plan import EmulationPlan, default_n_moduli, dtype_name, make_plan, n_limbs_for_ctx
+from .residues import quantize, residues_from_quantized, sym_mod_int32
 
 
 def resolve_device(device=None) -> torch.device:
@@ -38,48 +47,141 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def chunked_residue_matmul(mod_gemm_stack, ares, bres, chunk_limit: int | None = None):
-    """K-chunk an (N,m,k) x (N,k,n) residue product so every kernel launch
+def _sym_mod_stack(d: torch.Tensor, ctx: CRTContext) -> torch.Tensor:
+    """Symmetric mod of an (N, ...) integer stack, plane l modulo p_l."""
+    p = torch.as_tensor(ctx.moduli_arr, device=d.device).reshape((ctx.n,) + (1,) * (d.ndim - 1))
+    return sym_mod_int32(d, p.to(d.dtype))
+
+
+def chunked_residue_matmul(mod_gemm_stack, ares, bres, ctx: CRTContext | None = None,
+                           carry_epilogue: bool = False, chunk_limit: int | None = None):
+    """K-chunk an (N,m,k) x (N,k,n) residue product so every product
     accumulates exactly (k <= `chunk_limit`, default `K_CHUNK_LIMIT`, read
     at call time so tests can patch the module constant).
 
-    `mod_gemm_stack(ares, bres, carry) -> residues`: the previous chunk's
-    residues are threaded through the kernel's carry input and folded into
-    its epilogue mod, one batched launch per chunk.  `ares`/`bres` (and the
-    carry) may be tuples of same-K stacks: the fused-Karatsuba product
-    passes its (R, I) plane pairs and carries (CR, CI).
+    Two ways of combining the chunks share this one loop:
+
+    * ``carry_epilogue=False`` — `mod_gemm_stack(ares, bres) -> (N,m,n)
+      int8`: the chunks' residues are summed in int32 and reduced once
+      (`_sym_mod_stack`, modulo `ctx`'s moduli): the reference and
+      per-modulus backends.
+    * ``carry_epilogue=True`` — `mod_gemm_stack(ares, bres, carry) ->
+      residues`: the previous chunk's residues are threaded through the
+      kernel's carry input and folded into its epilogue mod, one batched
+      launch per chunk.  `ares`/`bres` (and the carry) may be tuples of
+      same-K stacks: the fused-Karatsuba product passes its (R, I) plane
+      pairs and carries (CR, CI).
+
+    Both give the exact canonical residues of the full-k product.
     """
     if chunk_limit is None:
         chunk_limit = K_CHUNK_LIMIT
     pair = isinstance(ares, tuple)
     k = (ares[0] if pair else ares).shape[-1]
-    carry = None
+
+    def cut_a(x, sl):
+        return x[..., sl].contiguous()
+
+    def cut_b(x, sl):
+        return x[:, sl, :].contiguous()
+
+    if carry_epilogue:
+        carry = None
+        for k0 in range(0, k, chunk_limit):
+            sl = slice(k0, k0 + chunk_limit)
+            if pair:
+                carry = mod_gemm_stack(tuple(cut_a(x, sl) for x in ares),
+                                       tuple(cut_b(x, sl) for x in bres), carry)
+            else:
+                carry = mod_gemm_stack(cut_a(ares, sl), cut_b(bres, sl), carry)
+        return carry
+    if k <= chunk_limit:
+        return mod_gemm_stack(ares, bres)
+    acc = None
     for k0 in range(0, k, chunk_limit):
         sl = slice(k0, k0 + chunk_limit)
-
-        def cut_a(x):
-            return x[..., sl].contiguous()
-
-        def cut_b(x):
-            return x[:, sl, :].contiguous()
-
-        if pair:
-            carry = mod_gemm_stack(tuple(map(cut_a, ares)), tuple(map(cut_b, bres)), carry)
-        else:
-            carry = mod_gemm_stack(cut_a(ares), cut_b(bres), carry)
-    return carry
+        e = mod_gemm_stack(cut_a(ares, sl), cut_b(bres, sl)).to(torch.int32)
+        acc = e if acc is None else acc + e
+    # |acc| <= n_chunks*127 << 2^31
+    return _sym_mod_stack(acc, ctx).to(torch.int8)
 
 
 def _cast_pair(backend, xr, xi, e, axis, ctx, n_limbs):
-    """Residue-cast a real/imag pair sharing one scale vector, 1 launch."""
-    res = backend.cast_stack(torch.stack([xr, xi]), e, axis, ctx, n_limbs)
+    """Residue-cast a real/imag pair sharing one scale vector: one stacked
+    launch when the backend has `cast_stack`, else two `cast` calls (the
+    reference and per-modulus backends), with the same bits."""
+    cast_stack = getattr(backend, "cast_stack", None)
+    if cast_stack is None:
+        return backend.cast(xr, e, axis, ctx, n_limbs), backend.cast(xi, e, axis, ctx, n_limbs)
+    res = cast_stack(torch.stack([xr, xi]), e, axis, ctx, n_limbs)
     return res[0], res[1]
 
 
 def _reconstruct_pair(backend, er, ei, e_mu, e_nu, ctx, method, out_dtype):
-    """Reconstruct a CR/CI residue pair in one stacked launch."""
-    out = backend.reconstruct_stack(torch.stack([er, ei]), e_mu, e_nu, ctx, method, out_dtype)
+    """Reconstruct a CR/CI residue pair: one stacked launch when the
+    backend has `reconstruct_stack`, else two `reconstruct` calls."""
+    rec_stack = getattr(backend, "reconstruct_stack", None)
+    if rec_stack is None:
+        return (backend.reconstruct(er, e_mu, e_nu, ctx, method, out_dtype),
+                backend.reconstruct(ei, e_mu, e_nu, ctx, method, out_dtype))
+    out = rec_stack(torch.stack([er, ei]), e_mu, e_nu, ctx, method, out_dtype)
     return out[0], out[1]
+
+
+# ================================================================ backends
+
+
+def _composed_karatsuba(backend, arr, ari, brr, bri, ctx):
+    """Residues of (CR', CI') via 3 residue products (paper eq. 10), composed
+    from `backend.residue_matmul` (the reference backend).  Every product
+    returns canonical symmetric residues (|r| <= 127), so the int32
+    combines stay exact."""
+    asum = _sym_mod_stack(arr.to(torch.int32) + ari.to(torch.int32), ctx).to(torch.int8)
+    bsum = _sym_mod_stack(brr.to(torch.int32) + bri.to(torch.int32), ctx).to(torch.int8)
+    d = backend.residue_matmul(arr, brr, ctx).to(torch.int32)  # already mod p
+    e = backend.residue_matmul(ari, bri, ctx).to(torch.int32)
+    f = backend.residue_matmul(asum, bsum, ctx).to(torch.int32)
+    er = _sym_mod_stack(d - e, ctx).to(torch.int8)
+    ei = _sym_mod_stack(f - d - e, ctx).to(torch.int8)
+    return er, ei
+
+
+@dataclasses.dataclass(frozen=True)
+class ReferenceBackend:
+    """The reference data path (`execution="reference"`, port of
+    `repro.core.executor.ReferenceBackend`): plain PyTorch on whatever
+    device the operands are on, no hand-written kernel.  The cast quantizes
+    in float64, the residue products are exact float64 matmuls of the int8
+    planes (`core/intmul.py`), and the reconstruction is any of the three
+    CRT methods (`core/crt.py`), so the output is float64-grade.  The
+    capability flags are the reference's: Karatsuba is composed of 3
+    products and each primitive counts as one launch per modulus."""
+
+    fused_karatsuba = False
+    modulus_batched = False
+
+    def cast(self, x, e, axis, ctx, n_limbs):
+        """quantize by 2^e along `axis` and residue-decompose (steps IV/V-i/ii)."""
+        xq = quantize(x.to(torch.float64), scaling.exp2_vector(e), axis)
+        return residues_from_quantized(xq, ctx, n_limbs)
+
+    def residue_matmul(self, ares, bres, ctx):
+        """(N,m,k) x (N,k,n) -> (N,m,n) int8 residues of A'B' (steps V-iii/iv),
+        K-chunked by the shared `chunked_residue_matmul`."""
+        return chunked_residue_matmul(
+            lambda a, b: _sym_mod_stack(int8_matmul(a, b), ctx).to(torch.int8), ares, bres, ctx)
+
+    def karatsuba(self, arr, ari, brr, bri, ctx):
+        """Residues of (CR', CI') via 3 int8 products per modulus (paper eq. 10)."""
+        return _composed_karatsuba(self, arr, ari, brr, bri, ctx)
+
+    def reconstruct(self, e_res, e_mu, e_nu, ctx, method, out_dtype):
+        """CRT reconstruction (steps V-v/vi) + exact inverse scaling."""
+        hi, lo = crt.reconstruct(e_res, ctx, method)
+        return crt.inverse_scale(hi, lo, e_mu, e_nu, out_dtype)
+
+
+REFERENCE = ReferenceBackend()
 
 
 def _block_a(backend, arr, ari, brr, bri, ctx):
@@ -313,8 +415,9 @@ class PreparedOperand:
     one matrix at a time and stacked.
 
     `backend` runs the residue cast; None means the kernel backend, whose
-    f32 cast every port execution shares (the port has no `reference`
-    execution yet).  `device`: where the operand and its planes live; None
+    f32 cast the kernel, fused and fp8 executions share (the reference
+    defaults to its jnp backend; `prepare_weights` passes the policy's
+    execution backend, `REFERENCE` on the default execution).  `device`: where the operand and its planes live; None
     means the card, as for the `linalg` entry points.
     """
 
@@ -488,8 +591,8 @@ def gemm_prepared(prep: PreparedOperand, x: torch.Tensor, method: str = "garner"
     product is one launch per block, the planes feeding the kernel's B
     side.  mode='accu' reuses the stored bound and re-casts from the raw
     operand (`_gemm_prepared_accu`).  `backend` None means the kernel
-    backend (the port has no `reference` execution yet), so `method` is
-    'garner'.
+    backend, as for `PreparedOperand`, so `method` defaults to 'garner'
+    (the reference's defaults are its jnp backend and 'paper').
     """
     if backend is None:
         backend = _kernel_backend()

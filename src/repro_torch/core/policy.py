@@ -1,15 +1,25 @@
 """GEMM backend policy — the framework-facing integration of the technique.
 
-The port's copy of `repro.core.policy`, forward only.  A :class:`GemmPolicy`
-answers every static question about a matmul: *what* to emulate
-(``backend``), *how precisely* (``n_moduli``/``mode``/``method``/
-``out_dtype``), *which complex strategy* (``formulation``/``n_block``) and
-*where* to run it (``execution``).  The port runs three executions:
-``"kernel"`` (four hand-written kernels, 4 launches per GEMM at any N),
-``"fused"`` (one megakernel launch per GEMM) and ``"fp8"`` (the kernel
-execution's casts and Garner around residue products on the e4m3 engine,
-4 launches per GEMM).  `policy_matmul` also serves a weight prepared up
+The port's copy of `repro.core.policy`.  A :class:`GemmPolicy` answers
+every static question about a matmul: *what* to emulate (``backend``),
+*how precisely* (``n_moduli``/``mode``/``method``/``out_dtype``), *which
+complex strategy* (``formulation``/``n_block``) and *where* to run it
+(``execution``).  The port runs five executions: the default
+``"reference"`` (plain PyTorch in float64, every CRT method, f64-grade;
+no hand-written kernel), ``"kernel"`` (four hand-written kernels, 4
+launches per GEMM at any N), ``"per_modulus_kernel"`` (the same kernels,
+one product launch per modulus), ``"fused"`` (one megakernel launch per
+GEMM) and ``"fp8"`` (the kernel execution's casts and Garner around
+residue products on the e4m3 engine, 4 launches per GEMM).  The four
+kernel executions quantize through float32 (f32-grade) and are bitwise
+equal to one another.  `policy_matmul` also serves a weight prepared up
 front (`prepare_weights`, a right-side `PreparedOperand`).
+
+Backward: `emulated_matmul` is a `torch.autograd.Function` whose cotangent
+products are emulated under the same policy, dX = G W^T and dW = X^T G;
+for complex operands with conjugate transposes, dX = G W^H and dW = X^H G,
+`torch.matmul`'s own rule (the reference takes plain transposes, JAX's
+convention).
 
 The automatic choices run as in the reference: ``formulation="auto"`` and
 ``n_block="auto"`` through the performance model (`core/perfmodel.py`),
@@ -19,9 +29,9 @@ measured card under a `repro_torch.tune` calibration (``calibration=`` or
 an ambient `use_calibration`), else the GH200 preset.  The calibration's
 tuned tiles are what the kernels launch.
 
-The reference's other knobs keep their names and defaults here and raise
-`NotImplementedError`, naming the ROADMAP item (queue 1) that brings them,
-when a value other than the default asks for them.
+The reference's other knobs (``execution="sharded"``, ``mesh``,
+``shard_axes``) keep their names here and raise `NotImplementedError`,
+naming the ROADMAP item (queue 1) that brings them.
 """
 from __future__ import annotations
 
@@ -32,7 +42,7 @@ from typing import Literal
 import numpy as np
 import torch
 
-from .executor import PreparedOperand, gemm_prepared, run_plan
+from .executor import REFERENCE, PreparedOperand, gemm_prepared, run_plan
 from .plan import DTYPES, default_n_moduli, dtype_name, make_plan
 
 Backend = Literal["native", "ozaki2_f32", "ozaki2_f64", "ozaki2_c64", "ozaki2_c128"]
@@ -42,8 +52,6 @@ EXECUTIONS = ("reference", "kernel", "per_modulus_kernel", "sharded", "fp8", "fu
 
 # the ROADMAP (queue 1) item that ports each execution still missing here
 _EXECUTION_ITEM = {
-    "reference": "the 'reference' execution",
-    "per_modulus_kernel": "the 'per_modulus_kernel' execution",
     "sharded": "distributed + the 'sharded' execution",
 }
 
@@ -76,12 +84,14 @@ class GemmPolicy:
     ``"ozaki2_f64"`` / ``"ozaki2_c64"`` / ``"ozaki2_c128"``
     (SGEMM/DGEMM/CGEMM/ZGEMM emulation).  ``n_moduli``: CRT moduli count
     (None: the paper's per-(dtype, mode) default).  ``mode``: ``"fast"``
-    (eqs. 11-12) or ``"accu"`` (eqs. 13-14).  ``method``: ``"auto"`` or
-    ``"garner"`` on the kernel execution.  ``formulation``: ``"karatsuba"``,
-    ``"block_a"``, ``"block_b"`` or ``"auto"`` (the strategy the
-    performance model prices fastest).  ``n_block``: an int, None or
-    ``"auto"``.  ``execution``: ``"kernel"``, ``"fused"`` and ``"fp8"``
-    run; the default ``"reference"`` and the others raise when used.
+    (eqs. 11-12) or ``"accu"`` (eqs. 13-14).  ``method``: ``"auto"``,
+    ``"paper"``, ``"dd"`` or ``"garner"`` on the reference execution (auto:
+    ``"paper"``), ``"auto"`` or ``"garner"`` on the others.
+    ``formulation``: ``"karatsuba"``, ``"block_a"``, ``"block_b"`` or
+    ``"auto"`` (the strategy the performance model prices fastest).
+    ``n_block``: an int, None or ``"auto"``.  ``execution``: the default
+    ``"reference"``, ``"kernel"``, ``"per_modulus_kernel"``, ``"fused"``
+    and ``"fp8"`` run; ``"sharded"`` raises.
     ``out_dtype``: result dtype name.  ``mode="auto"`` (needs ``rtol``) and
     ``rtol``: the cheapest (mode, n_moduli) whose proven error bound meets
     the tolerance (`resolve_adaptive`).  ``calibration``: the path of a
@@ -147,9 +157,12 @@ class GemmPolicy:
         """The residue backend of this policy's execution."""
         if self.execution in _EXECUTION_ITEM:
             raise _not_ported(f"execution={self.execution!r}", _EXECUTION_ITEM[self.execution])
-        from ..kernels.ops import Fp8Backend, FusedBackend, KernelBackend
+        if self.execution == "reference":
+            return REFERENCE
+        from ..kernels.ops import Fp8Backend, FusedBackend, KernelBackend, PerModulusKernelBackend
 
-        return {"kernel": KernelBackend, "fused": FusedBackend, "fp8": Fp8Backend}[self.execution]()
+        return {"kernel": KernelBackend, "per_modulus_kernel": PerModulusKernelBackend,
+                "fused": FusedBackend, "fp8": Fp8Backend}[self.execution]()
 
     def resolved_calibration(self):
         """The `repro_torch.tune.Calibration` this policy's decisions read:
@@ -288,11 +301,9 @@ def _real_cast(y: torch.Tensor, dtype) -> torch.Tensor:
     return y.to(dtype)
 
 
-def emulated_matmul(x: torch.Tensor, w: torch.Tensor, policy: GemmPolicy) -> torch.Tensor:
-    """The emulated forward product x @ w (batched over leading dims)."""
-    if x.requires_grad or w.requires_grad:
-        raise _not_ported("the backward pass of an emulated matmul",
-                          "'torch.autograd.Function backward'")
+def _emulated_forward(x: torch.Tensor, w: torch.Tensor, policy: GemmPolicy) -> torch.Tensor:
+    """The emulated product x @ w (batched over leading dims), cast to the
+    policy's `out_dtype` or x's dtype."""
     ct = policy.compute_dtype
     plan = policy.plan_for(x.shape[-2], x.shape[-1], w.shape[-1])
     # launch under the pinned calibration (a no-op without one), so the
@@ -300,6 +311,50 @@ def emulated_matmul(x: torch.Tensor, w: torch.Tensor, policy: GemmPolicy) -> tor
     with policy._calibration_scope():
         y = run_plan(plan, x.to(ct), w.to(ct), policy.execution_backend())
     return _real_cast(y, policy.out_dtype or x.dtype)
+
+
+def _adjoint(x: torch.Tensor) -> torch.Tensor:
+    """The transpose of the last two dims, conjugated for complex x."""
+    x = x.transpose(-1, -2)
+    return x.conj_physical() if x.is_complex() else x
+
+
+class _EmulatedMatmul(torch.autograd.Function):
+    """x @ w with emulated cotangent products under the same policy (port of
+    the reference's `emulated_matmul` custom VJP): dX = G W^H, dW = X^H G,
+    each cast to its input's dtype.  For real operands W^H = W^T, the
+    reference's rule; for complex ones the conjugate transposes are
+    `torch.matmul`'s convention (the reference pairs plain transposes with
+    JAX's)."""
+
+    @staticmethod
+    def forward(ctx, x, w, policy):
+        ctx.save_for_backward(x, w)
+        ctx.policy = policy
+        return _emulated_forward(x, w, policy)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _real_cast(_emulated_forward(g, _adjoint(w), ctx.policy), x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _real_cast(_emulated_forward(_adjoint(x), g, ctx.policy), w.dtype)
+        return dx, dw, None
+
+
+def emulated_matmul(x: torch.Tensor, w: torch.Tensor, policy: GemmPolicy) -> torch.Tensor:
+    """The emulated product x @ w (batched over leading dims), differentiable:
+    with `requires_grad` on an operand the backward runs two more emulated
+    GEMMs under the same policy (`_EmulatedMatmul`).  An adaptive policy
+    (``rtol`` / ``mode='auto'``) is resolved here, for the forward's shape,
+    so the backward's products run the forward's (mode, n_moduli)."""
+    if policy.is_adaptive:
+        policy = policy.resolve_adaptive(x.shape[-2], x.shape[-1], w.shape[-1])
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _EmulatedMatmul.apply(x, w, policy)
+    return _emulated_forward(x, w, policy)
 
 
 def _prepared_matmul(x: torch.Tensor, w: PreparedOperand, policy: GemmPolicy) -> torch.Tensor:
@@ -403,9 +458,9 @@ def prepare_weights(params, policy: GemmPolicy, device=None):
     Walks dicts, lists and tuples and replaces each ``"w"`` value (a
     tensor or numpy array of ndim >= 2, possibly stacked with leading
     layer dims, or a list/tuple of such stacks) by a right-side
-    `PreparedOperand` cast with the policy's execution backend (the shared
-    kernel cast on every ported execution), so prepared serving stays
-    bitwise equal to the unprepared run.  Fast mode stores
+    `PreparedOperand` cast with the policy's execution backend (the
+    float64 cast on the reference execution, the shared kernel cast on the
+    others), so prepared serving stays bitwise equal to the unprepared run.  Fast mode stores
     the weight's residue planes; accu mode its bound and the raw weight
     (`keep_raw`).  A native policy returns the tree unchanged.  `device`:
     where the prepared weights live (None = the card).

@@ -38,9 +38,12 @@ def _p_accu(ctx: CRTContext) -> float:
 
 
 def exp2_vector(e: torch.Tensor) -> torch.Tensor:
-    """2.0**e in float64, exact for integer e in the normal range [-1022,
-    1023], built from the bit pattern (`torch.ldexp` takes 2**e in float32)."""
-    return ((e.to(torch.int64) + 1023) << 52).view(_F64)
+    """2.0**e in float64 for integer e, as the reference's
+    `jnp.ldexp(1.0, e)` gives it: exact in the normal range [-1022, 1023],
+    +inf above it, and +0.0 below it (XLA's CPU backend flushes the
+    subnormal powers to zero).  Built from the bit pattern (`torch.ldexp`
+    takes 2**e in float32)."""
+    return ((e.to(torch.int64).clamp(-1023, 1024) + 1023) << 52).view(_F64)
 
 
 def _nonzero_or_one(x: torch.Tensor) -> torch.Tensor:

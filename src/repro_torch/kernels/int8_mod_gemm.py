@@ -4,7 +4,7 @@ the one-launch real megakernel.
 Port of `repro.kernels.int8_mod_gemm`:
 
 * `int8_mod_gemm_batched` (Alg. 1 steps V-iii/iv for all N moduli in one
-  launch).  The optional `carry` (N, m, n) int8 residue stack is folded
+  launch), and `int8_mod_gemm`, the same kernel on one modulus.  The optional `carry` (N, m, n) int8 residue stack is folded
   into the epilogue reduction, out = sym_mod(acc + carry, p): K-chunked
   products thread the previous chunk's residues through it.  On CUDA
   tensors it launches `csrc/int8_mod_gemm.cu` (s8 `wgmma` in 4 x 1
@@ -121,6 +121,17 @@ def int8_mod_gemm_batched(
 
 int8_mod_gemm_batched.launches = 0
 int8_mod_gemm_batched.tma_launches = 0  # of them, those that loaded by TMA
+
+
+def int8_mod_gemm(a: torch.Tensor, b: torch.Tensor, *, p: int,
+                  tile: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """E = sym_mod(A @ B, p): (m,k) x (k,n) int8 -> (m,n) int8 residues.
+
+    The per-modulus entry point (`execution="per_modulus_kernel"`): the
+    batched kernel on a grid of one plane, so its launches count in
+    `int8_mod_gemm_batched.launches`.
+    """
+    return int8_mod_gemm_batched(a[None], b[None], moduli=(int(p),), tile=tile)[0]
 
 
 # --------------------------------------------------------------- megakernel

@@ -12,7 +12,8 @@ preparation of B); on CPU tensors it runs `karatsuba_mod_gemm_plain`.  The
 kernel loads its operands by TMA where k and n are multiples of 16 and
 every operand is 16-byte aligned (`build.uses_tma`), else from its own
 threads; the wrapper counts the TMA launches in `.tma_launches` beside
-`.launches`.
+`.launches`.  `karatsuba_mod_gemm` runs it on one modulus (a grid of one
+plane), the per-modulus execution's product.
 
 `fused_karatsuba_mod_gemm` is the one-launch complex megakernel (port of
 `repro.kernels.karatsuba_fused.fused_karatsuba_mod_gemm`): the casts of
@@ -150,6 +151,17 @@ def karatsuba_mod_gemm_batched(
 
 karatsuba_mod_gemm_batched.launches = 0
 karatsuba_mod_gemm_batched.tma_launches = 0  # of them, those that loaded by TMA
+
+
+def karatsuba_mod_gemm(ar: torch.Tensor, ai: torch.Tensor, br: torch.Tensor, bi: torch.Tensor, *,
+                       p: int, tile: tuple[int, int, int] | None = None):
+    """Residues of (CR', CI') = (AR'+iAI')(BR'+iBI') mod p, all int8 (m,k) /
+    (k,n).  The per-modulus entry point (`execution="per_modulus_kernel"`):
+    the batched kernel on a grid of one plane, so its launches count in
+    `karatsuba_mod_gemm_batched.launches`."""
+    cr, ci = karatsuba_mod_gemm_batched(ar[None], ai[None], br[None], bi[None], moduli=(int(p),),
+                                        tile=tile)
+    return cr[0], ci[0]
 
 
 # --------------------------------------------------------------- megakernel

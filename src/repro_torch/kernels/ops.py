@@ -1,7 +1,8 @@
 """The residue backends behind `GemmPolicy(execution="kernel")`,
-`GemmPolicy(execution="fused")` and `GemmPolicy(execution="fp8")`.
+`execution="per_modulus_kernel"`, `execution="fused"` and
+`execution="fp8"`.
 
-Port of `repro.kernels.ops.KernelBackend`: it maps the executor's residue
+Port of `repro.kernels.ops`.  `KernelBackend` maps the executor's residue
 primitives onto the four kernels, one launch each whatever the modulus
 count N — `residue_cast` writes all N planes of an operand (real and
 imaginary parts stacked), the batched GEMM kernels fold the N planes into
@@ -9,6 +10,10 @@ their grid, and `crt_garner` reconstructs the whole (stacked) output.  A
 GEMM with k <= 2^17 is therefore cast + cast + product + reconstruct = 4
 launches.  Reconstruction is always Garner; f64-grade output uses its
 double-single mode, summed in float64 as hi + lo.
+
+`PerModulusKernelBackend` (execution="per_modulus_kernel") keeps the
+pre-batching schedule: one product launch per modulus, the casts and
+reconstructions unstacked; bitwise equal to execution="kernel".
 
 `FusedBackend` (execution="fused") runs each emulated GEMM as one launch
 of a megakernel instead (`fused_mod_gemm`, `fused_karatsuba_mod_gemm`).
@@ -23,6 +28,10 @@ its (family, dtype class, shape): the active calibration's tuned tile,
 else the kernel's default.  The capability flags (`fused_karatsuba`,
 `modulus_batched`, `megakernel`, `engine`) are the reference backends'
 declarations, which the performance model's 'auto' selections price.
+
+`ozaki2_gemm_kernels` / `ozaki2_cgemm_kernels` are the reference's
+deprecated entry points, kept as shims over `linalg.matmul` under the
+kernel execution.
 """
 from __future__ import annotations
 
@@ -36,18 +45,23 @@ from ..core.moduli import CRTContext
 from . import fp8_mod_gemm
 from .common import resolve_blocks, split_scale_exponent
 from .crt_garner import crt_garner
-from .int8_mod_gemm import fused_mod_gemm, int8_mod_gemm_batched
-from .karatsuba_fused import fused_karatsuba_mod_gemm, karatsuba_mod_gemm_batched
+from .int8_mod_gemm import fused_mod_gemm, int8_mod_gemm, int8_mod_gemm_batched
+from .karatsuba_fused import fused_karatsuba_mod_gemm, karatsuba_mod_gemm, karatsuba_mod_gemm_batched
 from .residue_cast import residue_cast
 
 
 @dataclasses.dataclass(frozen=True)
-class KernelBackend:
-    """Residue backend running the modulus-batched kernels: every primitive
-    is one launch (the plain PyTorch versions on CPU tensors)."""
+class _KernelBackendBase:
+    """The kernel backends' shared cast and reconstruction: one
+    `residue_cast` launch per operand and one `crt_garner` launch per
+    output (the plain PyTorch versions on CPU tensors).  Reconstruction is
+    always Garner; f64-grade output uses its double-single mode, summed in
+    float64 as hi + lo."""
 
+    # both kernel paths fuse the Karatsuba D/E/F triple into one kernel;
+    # only the batched subclass folds the N planes into one grid
     fused_karatsuba = True
-    modulus_batched = True
+    modulus_batched = False
 
     @staticmethod
     def _check_method(method):
@@ -58,16 +72,35 @@ class KernelBackend:
             )
 
     def cast(self, x, e, axis, ctx: CRTContext, n_limbs: int):
-        """(m, k) operand -> (N, m, k) int8 residues, 1 launch."""
-        return self.cast_stack(x, e, axis, ctx, n_limbs)
+        """(m, k) operand -> (N, m, k) int8 residues (an (S, m, k) stack
+        sharing the scale vector -> (S, N, m, k)), 1 launch."""
+        s1, s2 = split_scale_exponent(e)
+        return residue_cast(
+            x.to(torch.float32).contiguous(), s1, s2,
+            moduli=ctx.moduli, n_limbs=n_limbs, scale_axis=axis,
+        )
+
+    def reconstruct(self, e_res, e_mu, e_nu, ctx: CRTContext, method, out_dtype):
+        """(N, m, n) residues -> (m, n) output (an (S, N, m, n) stack
+        sharing the scale exponents -> (S, m, n)), 1 launch."""
+        self._check_method(method)
+        out_dd = out_dtype == torch.float64
+        out = crt_garner(e_res.contiguous(), e_mu, e_nu, ctx, out_dd=out_dd)
+        return _dd_sum(out) if out_dd else out
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelBackend(_KernelBackendBase):
+    """Residue backend running the modulus-batched kernels: every primitive
+    is one launch (the plain PyTorch versions on CPU tensors), and the
+    real and imaginary parts of a complex operand or output are stacked
+    into one launch (`cast_stack` / `reconstruct_stack`)."""
+
+    modulus_batched = True
 
     def cast_stack(self, xs, e, axis, ctx: CRTContext, n_limbs: int):
         """(S, m, k) stack sharing one scale vector -> (S, N, m, k), 1 launch."""
-        s1, s2 = split_scale_exponent(e)
-        return residue_cast(
-            xs.to(torch.float32).contiguous(), s1, s2,
-            moduli=ctx.moduli, n_limbs=n_limbs, scale_axis=axis,
-        )
+        return self.cast(xs, e, axis, ctx, n_limbs)
 
     def residue_matmul(self, ares, bres, ctx: CRTContext):
         """One batched launch per K-chunk; the inter-chunk sym_mod runs in
@@ -75,7 +108,7 @@ class KernelBackend:
         return chunked_residue_matmul(
             lambda a, b, carry: int8_mod_gemm_batched(
                 a, b, moduli=ctx.moduli, carry=carry, tile=_tile("kernel", "real", a, b)),
-            ares, bres,
+            ares, bres, ctx, carry_epilogue=True,
         )
 
     def karatsuba(self, arr, ari, brr, bri, ctx: CRTContext):
@@ -86,22 +119,47 @@ class KernelBackend:
                 a[0], a[1], b[0], b[1], moduli=ctx.moduli, carry=carry,
                 tile=_tile("kernel", "complex", a[0], b[0]),
             ),
-            (arr, ari), (brr, bri),
+            (arr, ari), (brr, bri), ctx, carry_epilogue=True,
         )
-
-    def reconstruct(self, e_res, e_mu, e_nu, ctx: CRTContext, method, out_dtype):
-        """(N, m, n) residues -> (m, n) output, 1 launch."""
-        return self.reconstruct_stack(e_res[None], e_mu, e_nu, ctx, method, out_dtype)[0]
 
     def reconstruct_stack(self, e_res, e_mu, e_nu, ctx: CRTContext, method, out_dtype):
         """(S, N, m, n) residue stacks sharing scale exponents -> (S, m, n)
         outputs in one launch (the executor stacks CR/CI)."""
-        self._check_method(method)
-        out_dd = out_dtype == torch.float64
-        out = crt_garner(e_res.contiguous(), e_mu, e_nu, ctx, out_dd=out_dd)
-        if out_dd:
-            return out[:, 0].double() + out[:, 1].double()
-        return out
+        return self.reconstruct(e_res, e_mu, e_nu, ctx, method, out_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class PerModulusKernelBackend(_KernelBackendBase):
+    """One product launch per modulus (execution="per_modulus_kernel", port
+    of `repro.kernels.ops.PerModulusKernelBackend`): the pre-batching
+    schedule, kept as the bitwise parity target of `KernelBackend` and as
+    the launch-count contrast of the performance model.  Each product is
+    the batched kernel on a grid of one plane (`int8_mod_gemm`,
+    `karatsuba_mod_gemm`), K-chunked with the int32 combine between
+    chunks; the casts and reconstructions are not stacked, so a complex
+    GEMM casts four times and reconstructs twice.
+    """
+
+    def _mod_gemm_stack(self, ares, bres, ctx: CRTContext):
+        """Un-chunked per-modulus kernel launches (k <= K_CHUNK_LIMIT)."""
+        tile = _tile("kernel", "real", ares, bres)
+        planes = [int8_mod_gemm(ares[l], bres[l], p=int(ctx.moduli[l]), tile=tile)
+                  for l in range(ctx.n)]
+        return torch.stack(planes, dim=0)
+
+    def residue_matmul(self, ares, bres, ctx: CRTContext):
+        return chunked_residue_matmul(
+            lambda a, b: self._mod_gemm_stack(a, b, ctx), ares, bres, ctx)
+
+    def karatsuba(self, arr, ari, brr, bri, ctx: CRTContext):
+        tile = _tile("kernel", "complex", arr, brr)
+        er_planes, ei_planes = [], []
+        for l in range(ctx.n):
+            cr, ci = karatsuba_mod_gemm(arr[l], ari[l], brr[l], bri[l], p=int(ctx.moduli[l]),
+                                        tile=tile)
+            er_planes.append(cr)
+            ei_planes.append(ci)
+        return torch.stack(er_planes, dim=0), torch.stack(ei_planes, dim=0)
 
 
 def _tile(family, dclass, a, b):
@@ -112,8 +170,8 @@ def _tile(family, dclass, a, b):
 
 
 def _dd_sum(out):
-    """The float64 value hi + lo of a (2, m, n) double-single pair."""
-    return out[0].double() + out[1].double()
+    """The float64 value hi + lo of a (..., 2, m, n) double-single pair."""
+    return out.select(-3, 0).double() + out.select(-3, 1).double()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,7 +239,7 @@ class Fp8Backend(KernelBackend):
         return chunked_residue_matmul(
             lambda a, b, carry: fp8_mod_gemm.fp8_mod_gemm_batched(
                 a, b, moduli=ctx.moduli, carry=carry, tile=_tile("fp8", "real", a, b)),
-            ares, bres,
+            ares, bres, ctx, carry_epilogue=True,
             chunk_limit=fp8_mod_gemm.FP8_K_CHUNK_LIMIT,  # read at call time: tests patch it
         )
 
@@ -190,6 +248,55 @@ class Fp8Backend(KernelBackend):
             lambda a, b, carry: fp8_mod_gemm.fp8_karatsuba_mod_gemm_batched(
                 a[0], a[1], b[0], b[1], moduli=ctx.moduli, carry=carry,
                 tile=_tile("fp8", "complex", a[0], b[0])),
-            (arr, ari), (brr, bri),
+            (arr, ari), (brr, bri), ctx, carry_epilogue=True,
             chunk_limit=fp8_mod_gemm.FP8_K_CHUNK_LIMIT,
         )
+
+
+def _kernels_shim_policy(name, backend, **kw):
+    from ..core.gemm import _deprecated
+    from ..core.policy import GemmPolicy
+
+    policy = GemmPolicy(backend=backend, execution="kernel", **kw)
+    # stacklevel 4: user -> ozaki2_*_kernels -> here -> _deprecated
+    _deprecated(name, policy, stacklevel=4)
+    return policy
+
+
+def ozaki2_gemm_kernels(a, b, n_moduli: int | None = None, mode: str = "fast",
+                        n_block: int | None = None, *, device=None) -> torch.Tensor:
+    """Kernel-path real GEMM emulation (f32 in / f32 out).
+
+    .. deprecated:: use ``repro_torch.linalg.matmul`` with a
+       ``GemmPolicy(backend="ozaki2_f32", execution="kernel")`` instead.
+
+    The reference's ``interpret`` argument has no counterpart: ``device``
+    picks the card (None) or the plain versions (``"cpu"``).
+    """
+    policy = _kernels_shim_policy(
+        "ozaki2_gemm_kernels", "ozaki2_f32",
+        n_moduli=None if n_moduli is None else int(n_moduli),
+        mode=mode, n_block=n_block, out_dtype="float32",
+    )
+    from .. import linalg
+
+    return linalg.matmul(a, b, policy=policy, device=device)
+
+
+def ozaki2_cgemm_kernels(a, b, n_moduli: int | None = None, mode: str = "fast",
+                         formulation: str = "karatsuba", n_block: int | None = None, *,
+                         device=None) -> torch.Tensor:
+    """Kernel-path complex GEMM emulation (complex64 in/out).
+
+    .. deprecated:: use ``repro_torch.linalg.matmul`` with a
+       ``GemmPolicy(backend="ozaki2_c64", execution="kernel",
+       formulation=...)`` instead.
+    """
+    policy = _kernels_shim_policy(
+        "ozaki2_cgemm_kernels", "ozaki2_c64",
+        n_moduli=None if n_moduli is None else int(n_moduli),
+        mode=mode, formulation=formulation, n_block=n_block, out_dtype="complex64",
+    )
+    from .. import linalg
+
+    return linalg.matmul(a, b, policy=policy, device=device)

@@ -9,11 +9,18 @@ Device rule: every entry point takes ``device=None``, which means
 ``"cuda"``.  Operands (tensors or numpy arrays) are moved to that device
 and the result is returned there.  Without a CUDA device it raises; it
 never computes on the CPU unless asked with ``device="cpu"``, which runs
-the kernels' plain PyTorch versions.  Three executions run:
-``execution="kernel"`` (4 launches per GEMM), ``"fused"`` (1 megakernel
-launch) and ``"fp8"`` (4 launches, the products on the e4m3 engine), all
-bitwise equal.  On each of them the d/zgemm results are float64-shaped but
-f32-grade, as in the reference: the residue cast quantizes through float32.
+the kernels' plain PyTorch versions.  Five executions run: the default
+``execution="reference"`` (plain PyTorch in float64 with every CRT method:
+f64-grade d/zgemm, no hand-written kernel), ``"kernel"`` (4 launches per
+GEMM), ``"per_modulus_kernel"`` (one product launch per modulus),
+``"fused"`` (1 megakernel launch) and ``"fp8"`` (4 launches, the products
+on the e4m3 engine).  The four kernel executions are bitwise equal, and
+their d/zgemm results are float64-shaped but f32-grade, as in the
+reference: the residue cast quantizes through float32 (at f32 grade,
+s/cgemm, they are also the reference execution's bits).  Every execution
+differentiates: the backward emulates dX = G W^H and dW = X^H G under the
+same policy (conjugate transposes for complex operands, `torch.matmul`'s
+convention).
 
 Automatic choices: ``GemmPolicy(formulation="auto")``, ``mode="auto"`` with
 ``rtol`` (or ``matmul(..., rtol=)``) and a pinned ``calibration=`` file
@@ -155,7 +162,8 @@ def sgemm(x, w, *, policy: GemmPolicy | None = None, device=None):
 
 def dgemm(x, w, *, policy: GemmPolicy | None = None, device=None):
     """Emulated DGEMM: f64 compute, every other knob from the policy.  On
-    the kernel execution the output is f64-shaped but f32-grade."""
+    the kernel executions the output is f64-shaped but f32-grade; on the
+    reference execution it is f64-grade."""
     return _blas("dgemm", torch.float64, x, w, policy, device)
 
 
@@ -167,5 +175,5 @@ def cgemm(x, w, *, policy: GemmPolicy | None = None, device=None):
 
 def zgemm(x, w, *, policy: GemmPolicy | None = None, device=None):
     """Emulated ZGEMM (paper SIII): complex128 compute (f32-grade on the
-    kernel execution)."""
+    kernel executions, f64-grade on the reference execution)."""
     return _blas("zgemm", torch.complex128, x, w, policy, device)

@@ -107,15 +107,7 @@ def test_matmul_under_ambient_policy(rng):
     assert torch.equal(tl.matmul(ta, tb, device="cpu"), torch.matmul(ta, tb))
 
 
-@pytest.mark.parametrize(
-    "fields",
-    [
-        {"execution": "reference"},
-        {"execution": "per_modulus_kernel"},
-        {"execution": "sharded"},
-    ],
-    ids=["reference", "per_modulus_kernel", "sharded"],
-)
+@pytest.mark.parametrize("fields", [{"execution": "sharded"}], ids=["sharded"])
 def test_unported_executions_raise(rng, fields):
     """Executions not ported raise."""
     a, b = _operands(rng, np.complex64)
@@ -213,14 +205,6 @@ def test_pinned_calibration_file_bitwise(rng, tmp_path):
     got = tl.matmul(a, b, policy=tpol, device="cpu").numpy()
     np.testing.assert_array_equal(got, want)
     assert tpol.resolved_calibration() == tcal
-
-
-def test_unported_backward_raises(rng):
-    a, b = _operands(rng, np.float32)
-    pol = repro_torch.GemmPolicy(execution="kernel")
-    x = torch.from_numpy(a).requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.sgemm(x, torch.from_numpy(b), policy=pol, device="cpu")
 
 
 def test_default_device_is_the_card():
