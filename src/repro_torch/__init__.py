@@ -14,6 +14,9 @@ kernels (`repro_torch.kernels`); all differentiate through
 ``device="cpu"``.
 `python -m repro_torch.tune` calibrates the card and tunes the kernels'
 tiles for the policies' automatic choices (`repro_torch.tune`).
+`repro_torch.models`, `configs`, `checkpoint` and `serve` (with
+`python -m repro_torch.launch.serve`) serve the model zoo's
+attention-family archs with every linear on the emulated GEMM.
 """
 from . import linalg
 from .core.policy import GemmPolicy

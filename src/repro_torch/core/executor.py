@@ -32,7 +32,7 @@ import torch
 from . import crt, scaling
 from .intmul import int8_matmul
 from .moduli import K_CHUNK_LIMIT, CRTContext, make_crt_context
-from .plan import EmulationPlan, default_n_moduli, dtype_name, make_plan, n_limbs_for_ctx
+from .plan import DTYPES, EmulationPlan, default_n_moduli, dtype_name, make_plan, n_limbs_for_ctx
 from .residues import quantize, residues_from_quantized, sym_mod_int32
 
 
@@ -439,9 +439,17 @@ class PreparedOperand:
         mats = x.reshape(-1, *x.shape[-2:])
 
         def per_matrix(fn):
-            """fn(matrix) -> tuple of tensors, stacked over the batch dims."""
-            cols = zip(*(fn(x2) for x2 in mats))
-            return [torch.stack(col).reshape(*batch, *col[0].shape) for col in cols]
+            """fn(matrix) -> tuple of tensors, stacked over the batch dims
+            (written into one buffer per field as each matrix is done, so a
+            stacked weight never holds its planes twice)."""
+            outs = None
+            for i, x2 in enumerate(mats):
+                cols = fn(x2)
+                if outs is None:
+                    outs = [c.new_empty((len(mats), *c.shape)) for c in cols]
+                for out, c in zip(outs, cols):
+                    out[i] = c
+            return [out.reshape(*batch, *out.shape[1:]) for out in outs]
 
         def prep_fast(x2):
             if x2.is_complex():
@@ -476,6 +484,43 @@ class PreparedOperand:
         self.bound = tuple(bound)
         self.e_bound = e_bound
         self.raw = x if keep_raw else None
+
+    @classmethod
+    def abstract(cls, shape, dtype, n_moduli: int, side: str = "right",
+                 keep_raw: bool = False) -> "PreparedOperand":
+        """The operand `PreparedOperand(x, n_moduli, side, keep_raw=...)`
+        would build for an `x` of `shape` and `dtype`, with every field a
+        tensor on the "meta" device: its structure and metadata, and no
+        cast (the port's `jax.eval_shape` of a preparation)."""
+        dt = dtype_name(dtype)
+        ctx = make_crt_context(int(n_moduli))
+        *batch, rows, cols = (int(d) for d in shape)
+        meta = lambda *s, dtype: torch.empty(*s, dtype=dtype, device="meta")  # noqa: E731
+        parts = 2 if dt.startswith("complex") else 1
+        n_exp = rows if side == "left" else cols
+        p = object.__new__(cls)
+        p.side, p.n_moduli, p.n_limbs, p.dtype = side, ctx.n, n_limbs_for_ctx(ctx), dt
+        p.e_scale = None if keep_raw else meta(*batch, n_exp, dtype=torch.int32)
+        p.residues = () if keep_raw else tuple(
+            meta(*batch, ctx.n, rows, cols, dtype=torch.int8) for _ in range(parts))
+        p.bound = tuple(meta(*batch, rows, cols, dtype=torch.int8) for _ in range(parts)) if keep_raw else ()
+        p.e_bound = meta(*batch, n_exp, dtype=torch.int32) if keep_raw else None
+        p.raw = meta(*batch, rows, cols, dtype=DTYPES[dt]) if keep_raw else None
+        return p
+
+    def layer(self, i: int) -> "PreparedOperand":
+        """Batch element `i` of a preparation with leading batch dims (layer
+        `i` of a stacked (L, k, n) weight): views of every field at [i],
+        bitwise what preparing that matrix alone gives."""
+        if self.batch_ndim < 1:
+            raise ValueError(f"{self!r} has no leading batch dim to index")
+        p = object.__new__(PreparedOperand)
+        p.side, p.n_moduli, p.n_limbs, p.dtype = self.side, self.n_moduli, self.n_limbs, self.dtype
+        pick = lambda t: None if t is None else t[i]  # noqa: E731
+        p.e_scale, p.e_bound, p.raw = pick(self.e_scale), pick(self.e_bound), pick(self.raw)
+        p.residues = tuple(r[i] for r in self.residues)
+        p.bound = tuple(b[i] for b in self.bound)
+        return p
 
     @property
     def res(self):

@@ -294,8 +294,11 @@ NATIVE = GemmPolicy()
 
 
 def _real_cast(y: torch.Tensor, dtype) -> torch.Tensor:
-    """`.to` that is explicit about dropping an imaginary part."""
-    dtype = DTYPES[dtype_name(dtype)]
+    """`.to` that is explicit about dropping an imaginary part.  `dtype` is
+    a name or any torch dtype (a bfloat16 activation's product returns in
+    bfloat16, as in the reference)."""
+    if not isinstance(dtype, torch.dtype):
+        dtype = DTYPES[dtype_name(dtype)]
     if y.is_complex() and not dtype.is_complex:
         y = y.real
     return y.to(dtype)
@@ -462,12 +465,36 @@ def prepare_weights(params, policy: GemmPolicy, device=None):
     float64 cast on the reference execution, the shared kernel cast on the
     others), so prepared serving stays bitwise equal to the unprepared run.  Fast mode stores
     the weight's residue planes; accu mode its bound and the raw weight
-    (`keep_raw`).  A native policy returns the tree unchanged.  `device`:
-    where the prepared weights live (None = the card).
+    (`keep_raw`).  A stacked weight is one operand with leading batch dims;
+    `PreparedOperand.layer(i)` takes layer i.  A native policy returns the
+    tree unchanged.  `device`: where the prepared weights live (None = the
+    card).
     """
     if policy.backend == "native":
         return params
     cast_backend = policy.execution_backend()
+    ct = policy.compute_dtype
+    return _map_weights(params, policy, lambda val, n_moduli, keep_raw: PreparedOperand(
+        torch.as_tensor(val).to(ct), n_moduli, side="right", backend=cast_backend,
+        keep_raw=keep_raw, device=device))
+
+
+def prepared_like(params, policy: GemmPolicy):
+    """`prepare_weights(params, policy)`'s tree with each prepared weight
+    an abstract `PreparedOperand` (fields on the "meta" device) and no cast
+    run: where the weights it prepares sit, and their structure (the port's
+    `jax.eval_shape(prepare_weights)`)."""
+    if policy.backend == "native":
+        return params
+    ct = policy.compute_dtype
+    return _map_weights(params, policy, lambda val, n_moduli, keep_raw: PreparedOperand.abstract(
+        tuple(val.shape), ct, n_moduli, side="right", keep_raw=keep_raw))
+
+
+def _map_weights(params, policy: GemmPolicy, make):
+    """`params` with each weight that preparation consumes replaced by
+    ``make(weight, n_moduli, keep_raw)``: the one rule of which leaves are
+    prepared and with what, for `prepare_weights` and `prepared_like`."""
     ct = policy.compute_dtype
 
     def is_weight_leaf(val):
@@ -487,10 +514,7 @@ def prepare_weights(params, policy: GemmPolicy, device=None):
             # canonical pricing shape (m := n) the prepared matmul uses
             k, n = int(val.shape[-2]), int(val.shape[-1])
             pol = policy.resolve_adaptive(n, k, n)
-            return PreparedOperand(
-                torch.as_tensor(val).to(ct), pol.n_moduli or default_n_moduli(ct, pol.mode),
-                side="right", backend=cast_backend, keep_raw=pol.mode == "accu", device=device,
-            )
+            return make(val, pol.n_moduli or default_n_moduli(ct, pol.mode), pol.mode == "accu")
         if isinstance(val, (list, tuple)):
             return type(val)(prep(v) for v in val)
         return walk(val)

@@ -101,6 +101,19 @@ def use_policy(policy: GemmPolicy | str):
         stack.pop()
 
 
+@contextlib.contextmanager
+def _no_ambient_policy():
+    """Clear the ambient stack for the scope: the registry configs built at
+    import time stay scope-independent (the configs registry re-pins the
+    ambient policy at lookup instead)."""
+    stack = getattr(_STATE, "stack", None)
+    _STATE.stack = []
+    try:
+        yield
+    finally:
+        _STATE.stack = stack if stack is not None else []
+
+
 def matmul(x, w, *, policy: GemmPolicy | None = None, rtol: float | None = None, device=None):
     """Drop-in `torch.matmul(x, w)` under `policy` (default: the ambient
     `use_policy` scope; native when none is active), on `device`.
