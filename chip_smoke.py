@@ -205,23 +205,29 @@ failure is caught.
    (b) starcoder2-3b as published (`configs/starcoder2_3b.py`: 30 layers,
        d_model 3072, 24 heads, 2 KV heads, d_ff 12288, vocab 49152,
        window 4096), float32, weights from torch.Generator seed 0 drawn
-       on the card; 4 prompts of 128 tokens, 16 greedy new tokens; five
-       engines: native, `kernel` unprepared, `kernel` with prepare=True,
-       `fused` with prepare=True (the launch counters zeroed just before
-       and read just after each engine's generate: 720, 540 and 180
-       launches a forward call by kernel, `kernel_launch_count` x 180
-       linears), and at full width with 2 layers `kernel` prepared into a
-       `prepared_dir` (a temporary directory, removed after) and
-       constructed again, which must restore without a cast.  The
-       emulated engines' tokens and logits (the prefill's and every
-       decode step's) bitwise equal; the prefill's logits of native and
-       emulated held to the same model with float64 linears: emulated at
-       most SERVE_EMULATED_FACTOR (2) times as far as native (derived
-       beside it: the random-init model amplifies a product's rounding
-       1e4-fold), its top-1 equal wherever the float64 model's margin
-       exceeds twice the emulated difference.  Prints each
-       engine's preparation s, prefill ms, decode ms a token, tokens/s,
-       launches and peak memory;
+       on the card; 4 prompts of 128 tokens, 16 greedy new tokens.  First
+       every linear of layer 0 (q, k, v, o: 3072 x 3072 and 3072 x 256;
+       up, down: 3072 x 12288 and 12288 x 3072) at the decode shape
+       (4, 1, k) and the prefill shape (4, 128, k) through `apply_linear`
+       on `kernel` and `fused`, unprepared and prepared on the card, each
+       bitwise equal to device="cpu".  Then four engines, one at a time:
+       native, `kernel` unprepared, `kernel` with prepare=True, `fused`
+       with prepare=True (the launch counters zeroed just before and read
+       just after each engine's generate: 720, 540 and 180 launches a
+       forward call by kernel, `kernel_launch_count` x 180 linears); the
+       emulated engines' tokens and logits (the prefill's and every decode
+       step's) bitwise equal.  Then at full width with 2 layers: `kernel`
+       prepared into a `prepared_dir` (a temporary directory, removed
+       after) and constructed again, which must restore without a cast,
+       both bitwise equal to unprepared; and the emulated engine's logits
+       (prefill and every decode step) within SERVE_WIDE_TOL (1e-4) x
+       max|logits| of the same model with float64 linears, its tokens
+       equal wherever that model's top-2 margin exceeds twice that (30
+       random-init layers amplify a product's rounding 1e4-fold, so the
+       bound is held where it still bites).  Prints each engine's
+       preparation s, prefill ms and decode ms a token (both from one
+       generate), tokens/s, launches and peak memory since its
+       construction;
    (c) the serve CLI once, `repro_torch.launch.serve.main` with
        --arch starcoder2-3b --backend ozaki2_f32 --execution kernel
        --prepare, on the card: exit 0 and its tokens/s.
@@ -1861,28 +1867,21 @@ SERVE_RESTORE_LAYERS = 2  # phase 7b's prepared_dir round trip at full width
 # the port against the reference: logits within 1e-4 x max|logits|, tokens
 # equal where the cpu's top-2 margin exceeds twice that.
 SERVE_CARD_TOL = 1e-4
-# phase 7b: emulated against native.  At its random init starcoder2-3b
-# amplifies a product's rounding through its 30 layers (its stacked weights
-# draw with std 1/sqrt(30), the reference's fan-in rule reading the layer
-# axis, so the residual stream grows to ~4,500): with float32 and float64
-# cuBLAS linears the last position's hidden state differs by 1e-5 of its
-# max after layer 1 and the logits by 0.27 of their max.  So no fixed
-# bound holds for any float32 GEMM.  The bound
-# is relative to that: both float32 models are held to the same model with
-# float64 linears, and the emulated one (f32-grade, N = 8) may be at most
-# SERVE_EMULATED_FACTOR times as far from it as cuBLAS float32 is; its
-# top-1 must equal the float64 one's wherever that one's top-2 margin
-# exceeds twice the emulated model's largest difference (which then
-# cannot move the argmax).
-SERVE_EMULATED_FACTOR = 2.0
-
-
-def serve_batch(rng, cfg, b, s, dev):
-    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)).to(dev)}
-    if cfg.frontend:
-        batch["prefix_embeds"] = torch.from_numpy(
-            (rng.standard_normal((b, cfg.n_prefix_embeds, cfg.d_model)) * 0.02).astype(np.float32)).to(dev)
-    return batch
+# phase 7b: emulated against a model with float64 linears, at full width.
+# At its random init starcoder2-3b amplifies a product's rounding through
+# its 30 layers (its stacked weights draw with std 1/sqrt(30), the
+# reference's fan-in rule reading the layer axis, so the residual stream
+# grows to ~4,500): float32 cuBLAS linears leave the last position's hidden
+# state 1e-5 of its max from float64 ones after layer 1 and the logits 0.27
+# of their max after layer 30 (tools/serve_profile.py).  So the end-to-end
+# bound is held where it still bites, on the same widths with
+# SERVE_RESTORE_LAYERS layers: the emulated engine's logits (the prefill's
+# and every decode step's) within SERVE_WIDE_TOL x max|logits| of the
+# float64 linears' model, the float32 rule of the CPU tests, and its tokens
+# equal wherever that model's top-2 margin exceeds twice that.  At 30
+# layers every linear of layer 0 is held bitwise to device="cpu" at the
+# serving shapes instead.
+SERVE_WIDE_TOL = 1e-4
 
 
 def top2_margin(logits):
@@ -1927,9 +1926,9 @@ def model_serving_reduced(rng, dev, GemmPolicy):
     SERVE_REDUCED_NEW greedy steps on `kernel`, card against cpu within
     SERVE_CARD_TOL."""
     from repro_torch.configs import ATTENTION_ARCHS, get_reduced
+    from repro_torch.launch.serve import prompt_batch
     from repro_torch.models import Model
     from repro_torch.models.layers import apply_linear
-    from repro_torch.models.transformer import layer_params
     from repro_torch.serve import ServeEngine
     from repro_torch.serve.engine import to_device
 
@@ -1938,9 +1937,7 @@ def model_serving_reduced(rng, dev, GemmPolicy):
         cfg = get_reduced(arch, dtype="float32", gemm_policy=pol)
         model = Model(cfg)
         params = model.init(torch.Generator().manual_seed(0), device="cpu")
-        lp = layer_params(params["groups"][0], 0)
-        linears = {f"block.{k}": v for k, v in lp["block"].items()}
-        linears.update({f"mlp.{k}": v for k, v in lp["mlp"].items()})
+        linears = layer_linears(params["groups"][0], 0)
         for name, p in linears.items():
             k = p["w"].shape[0]
             x = torch.from_numpy(phi_matrix(rng, (SERVE_REDUCED_B, SERVE_REDUCED_S, k), PHI, np.float32))
@@ -1949,7 +1946,7 @@ def model_serving_reduced(rng, dev, GemmPolicy):
             if on_card.device.type != dev.type or not same_bits(on_card.cpu(), on_cpu):
                 raise AssertionError(f"{arch} {name}: the card differs from device='cpu': "
                                      f"{first_difference(on_card.cpu(), on_cpu)}")
-        batch = serve_batch(rng, cfg, SERVE_REDUCED_B, SERVE_REDUCED_S, torch.device("cpu"))
+        batch = prompt_batch(cfg, SERVE_REDUCED_B, SERVE_REDUCED_S, rng, torch.device("cpu"))
         npre = cfg.n_prefix_embeds if cfg.frontend else 0
         cache_len = SERVE_REDUCED_S + npre + SERVE_REDUCED_NEW
         card = ServeEngine(model, params, cache_len, SERVE_REDUCED_B)
@@ -1965,31 +1962,100 @@ def model_serving_reduced(rng, dev, GemmPolicy):
               f"{compared} tokens compared, equal", flush=True)
 
 
+def layer_linears(group, i):
+    """{name: {"w", "b"}} of every linear of layer i of a stacked group."""
+    from repro_torch.models.transformer import layer_params
+
+    lp = layer_params(group, i)
+    linears = {f"block.{k}": v for k, v in lp["block"].items()}
+    linears.update({f"mlp.{k}": v for k, v in lp["mlp"].items()})
+    return linears
+
+
 def serve_run(eng, batch, kernels):
-    """One engine: a warm-up, the prefill alone, then the whole generate with
-    the launch counters zeroed just before and read just after.  Returns
-    (tokens, logits, launches, prefill ms, generate ms)."""
+    """One engine: a warm-up, then the whole generate with the launch
+    counters zeroed just before and read just after, and the prefill's end
+    marked inside that same generate (a synchronize after `model.prefill`).
+    Returns (tokens, logits, launches, prefill ms, decode ms a token,
+    generate ms)."""
     eng.generate(batch, 1)
-    _, prefill_ms = timed_calls(lambda: eng.generate(batch, 0), 1)
-    kernels.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tok, logits = eng.generate(batch, SERVE_NEW, return_logits=True)
-    torch.cuda.synchronize()
-    total_ms = (time.perf_counter() - t0) * 1e3
+    model, marks = eng.model, []
+    prefill = model.prefill
+
+    def marked(*args, **kwargs):
+        out = prefill(*args, **kwargs)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return out
+
+    model.prefill = marked
+    try:
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, logits = eng.generate(batch, SERVE_NEW, return_logits=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        del model.prefill
     counts = {k: v for k, v in kernels.launch_counts().items() if v}
     counts["int8_mod_gemm:tma"] = kernels.int8_mod_gemm.int8_mod_gemm_batched.tma_launches
-    return tok, logits, counts, prefill_ms, total_ms
+    return (tok, logits, counts, (marks[0] - t0) * 1e3, (t1 - marks[0]) * 1e3 / SERVE_NEW,
+            (t1 - t0) * 1e3)
+
+
+def full_width_linears(rng, dev, params, policies, kernels):
+    """Phase 7b: every linear of layer 0 of starcoder2-3b at the serving
+    shapes, decode (B, 1, k) and prefill (B, prompt, k), through
+    `apply_linear` on the card under each policy, unprepared and prepared
+    on the card, each bitwise equal to device="cpu" (the kernels' plain
+    versions on the `kernel` execution, the weight prepared once on the
+    CPU: the CPU tests hold prepared == unprepared and fused == kernel
+    there)."""
+    from repro_torch.core.policy import prepare_weights
+    from repro_torch.models.layers import apply_linear
+    from repro_torch.serve.engine import to_device
+
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    linears = layer_linears(params["groups"][0], 0)
+    for name, p in linears.items():
+        k, n = p["w"].shape
+        on_cpu = prepare_weights(to_device(p, torch.device("cpu")), policies[0], device="cpu")
+        card = {(pol.execution, prepared): prepare_weights(p, pol) if prepared else p
+                for pol in policies for prepared in (False, True)}
+        for s in (1, SERVE_PROMPT):
+            x = torch.from_numpy(phi_matrix(rng, (SERVE_B, s, k), PHI, np.float32))
+            want = apply_linear(on_cpu, x, policies[0])
+            for pol in policies:
+                for prepared in (False, True):
+                    got = apply_linear(card[pol.execution, prepared], x.to(dev), pol)
+                    if got.device.type != dev.type or not same_bits(got.cpu(), want):
+                        raise AssertionError(
+                            f"layer 0 {name} ({k}x{n}) at ({SERVE_B}, {s}, {k}), {pol.execution} "
+                            f"{'prepared' if prepared else 'unprepared'}: the card differs from device='cpu': "
+                            f"{first_difference(got.cpu(), want)}")
+        del card
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    tma = kernels.int8_mod_gemm.int8_mod_gemm_batched.tma_launches
+    print(f"  layer 0's {len(linears)} linears ({', '.join(linears)}) at ({SERVE_B}, 1, k) and "
+          f"({SERVE_B}, {SERVE_PROMPT}, k) on {' and '.join(p.execution for p in policies)}, unprepared and "
+          f"prepared: card == cpu, bitwise, in {time.perf_counter() - t0:.1f} s (launches {counts}; "
+          f"int8 by TMA {tma}; not counted as the main path's)", flush=True)
 
 
 def model_serving_full(rng, dev, GemmPolicy, kernels):
     """Phase 7b: starcoder2-3b as published (30 layers, float32), served by
-    five engines.  Returns the launches of the whole phase by kernel."""
+    four engines, its linears held to the CPU at full width, and with
+    SERVE_RESTORE_LAYERS layers the prepared_dir round trip and the bound
+    against float64 linears.  Returns the launches of the engines' runs by
+    kernel."""
     import dataclasses
     import shutil
 
     from repro_torch.configs import get_config
     from repro_torch.core.policy import NATIVE
+    from repro_torch.launch.serve import prompt_batch
     from repro_torch.models import Model
     from repro_torch.serve import ServeEngine
 
@@ -1999,14 +2065,15 @@ def model_serving_full(rng, dev, GemmPolicy, kernels):
     n_lin = 6 * cfg.n_layers  # q, k, v, o, up, down a layer
     calls = 1 + SERVE_NEW  # the prefill and every decode step
     model_of = lambda pol, c=cfg: Model(dataclasses.replace(c, gemm_policy=pol))  # noqa: E731
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = Model(cfg).init(torch.Generator().manual_seed(0))
     torch.cuda.synchronize()
+    params_gb = torch.cuda.memory_allocated() / 2**30
     print(f"  starcoder2-3b: {cfg.n_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
           f"{cfg.param_count() / 1e9:.3f} B params, float32, init on the card in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    batch = serve_batch(rng, cfg, SERVE_B, SERVE_PROMPT, dev)
+          f"{time.perf_counter() - t0:.2f} s ({params_gb:.2f} GiB allocated, shared by every engine)", flush=True)
+    full_width_linears(rng, dev, params, (emu, fused), kernels)
+    batch = prompt_batch(cfg, SERVE_B, SERVE_PROMPT, rng, dev)
     cache_len = SERVE_PROMPT + SERVE_NEW
     per_gemm = {"kernel": {"residue_cast": 2, "int8_mod_gemm": 1, "crt_garner": 1},
                 "prepared": {"residue_cast": 1, "int8_mod_gemm": 1, "crt_garner": 1},
@@ -2014,11 +2081,22 @@ def model_serving_full(rng, dev, GemmPolicy, kernels):
     model_count = {"kernel": model_launches("kernel", 8, False),
                    "prepared": model_launches("kernel", 8, False, prepared=True),
                    "fused": model_launches("fused", 8, False, prepared=True)}
-    phase = {}
-    runs = {}
+    phase, runs, peaks = {}, {}, []
 
-    def run(name, eng, prep_s, expect):
-        tok, logits, counts, prefill_ms, total_ms = serve_run(eng, batch, kernels)
+    def build(pol, prepare, prepared_dir=None, c=cfg, p=params):
+        """An engine, timed, with the peak memory counter reset just before
+        it is constructed (the previous engine already dropped)."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng = ServeEngine(model_of(pol, c), p, cache_len, SERVE_B, prepare=prepare, prepared_dir=prepared_dir)
+        torch.cuda.synchronize()
+        return eng, time.perf_counter() - t
+
+    def run(name, pol, prepare, expect):
+        eng, prep_s = build(pol, prepare)
+        tok, logits, counts, prefill_ms, decode_ms, total_ms = serve_run(eng, batch, kernels)
         tma = counts.pop("int8_mod_gemm:tma")
         for k, v in counts.items():
             phase[k] = phase.get(k, 0) + v
@@ -2029,34 +2107,18 @@ def model_serving_full(rng, dev, GemmPolicy, kernels):
             if counts != want or sum(counts.values()) != model_count[expect] * n_lin * calls:
                 raise AssertionError(f"{name}: launches {counts}, expected {want} "
                                      f"({model_count[expect]} a linear, perfmodel.kernel_launch_count)")
-        decode_ms = (total_ms - prefill_ms) / SERVE_NEW
         runs[name] = (tok, logits)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
         print(f"  {name}: prepare_s={prep_s:.3f} prefill_ms={prefill_ms:.3f} decode_ms/token={decode_ms:.3f} "
               f"tokens/s={SERVE_B * SERVE_NEW / total_ms * 1e3:.1f} (B={SERVE_B}, {SERVE_PROMPT}-token prompts, "
-              f"{SERVE_NEW} new) peak_GB={torch.cuda.max_memory_allocated() / 2**30:.2f} "
-              f"launches={counts} ({sum(counts.values()) // calls} a forward call; int8 by TMA {tma})",
-              flush=True)
+              f"{SERVE_NEW} new; prefill and decode from one generate) peak_GB={peaks[-1]:.2f} (this engine's "
+              f"construction and run, the shared params included) launches={counts} "
+              f"({sum(counts.values()) // calls} a forward call; int8 by TMA {tma})", flush=True)
 
-    def build(pol, prepare, prepared_dir=None, c=cfg, p=None):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        eng = ServeEngine(model_of(pol, c), params if p is None else p, cache_len, SERVE_B,
-                          prepare=prepare, prepared_dir=prepared_dir)
-        torch.cuda.synchronize()
-        return eng, time.perf_counter() - t
-
-    eng, s = build(NATIVE, False)
-    run("native", eng, s, None)
-    eng, s = build(emu, False)
-    run("kernel unprepared", eng, s, "kernel")
-    eng, s = build(emu, True)
-    run("kernel prepared", eng, s, "prepared")
-    del eng
-    torch.cuda.empty_cache()
-    eng, s = build(fused, True)
-    run("fused prepared", eng, s, "fused")
-    del eng
-    torch.cuda.empty_cache()
+    run("native", NATIVE, False, None)
+    run("kernel unprepared", emu, False, "kernel")
+    run("kernel prepared", emu, True, "prepared")
+    run("fused prepared", fused, True, "fused")
     ref_tok, ref_logits = runs["kernel unprepared"]
     for name in ("kernel prepared", "fused prepared"):
         tok, logits = runs[name]
@@ -2066,29 +2128,13 @@ def model_serving_full(rng, dev, GemmPolicy, kernels):
     print(f"  kernel prepared == kernel unprepared == fused prepared: tokens and the logits of the prefill "
           f"and all {SERVE_NEW} decode steps, bitwise", flush=True)
     nat_tok, nat_logits = runs["native"]
-    p64 = _map_tensors(params, lambda t: t.double())
-    _, wide = ServeEngine(model_of(NATIVE), p64, cache_len, SERVE_B).generate(batch, 0, return_logits=True)
-    del p64
-    torch.cuda.empty_cache()
-    wide = wide[:, 0].cpu()
-    dist = {name: float((runs[name][1][:, 0].cpu().double() - wide).abs().max() / wide.abs().max())
-            for name in ("native", "kernel unprepared")}
-    if not dist["kernel unprepared"] <= SERVE_EMULATED_FACTOR * dist["native"]:
-        raise AssertionError(f"emulated prefill logits {dist['kernel unprepared']:.3e} x max|logits| from the float64 "
-                             f"linears' model, over {SERVE_EMULATED_FACTOR} x native float32's {dist['native']:.3e}")
-    delta = (ref_logits[:, 0].cpu().double() - wide).abs().amax(dim=-1)
-    top = torch.topk(wide, 2, dim=-1).values
-    sure = (top[:, 0] - top[:, 1]) > 2 * delta
-    if not torch.equal(ref_logits[:, 0].cpu().argmax(-1)[sure], wide.argmax(-1)[sure]):
-        raise AssertionError("emulated prefill: top-1 differs from the float64 linears' model at a safe margin")
     emu_nat = float((ref_logits[:, 0] - nat_logits[:, 0]).abs().max() / nat_logits[:, 0].abs().max())
-    print(f"  prefill logits against the model with float64 linears: native float32 {dist['native']:.3e} x max|logits|, "
-          f"emulated {dist['kernel unprepared']:.3e} (bound {SERVE_EMULATED_FACTOR} x native); emulated against "
-          f"native {emu_nat:.3e}; top-1 equal to float64's in {int(sure.sum())} of {SERVE_B} rows whose margin "
-          f"exceeds twice the emulated difference; greedy tokens equal to native's: "
-          f"{int((ref_tok == nat_tok).sum())} of {ref_tok.numel()}", flush=True)
+    print(f"  {cfg.n_layers} layers, emulated against native (not held: the random-init model amplifies rounding): prefill "
+          f"logits {emu_nat:.3e} x max|logits| apart, greedy tokens equal in {int((ref_tok == nat_tok).sum())} "
+          f"of {ref_tok.numel()}", flush=True)
 
-    # the prepared_dir round trip, at full width with fewer layers
+    # at full width with fewer layers: the prepared_dir round trip, and the
+    # emulated engine held to the model with float64 linears
     small = dataclasses.replace(cfg, n_layers=SERVE_RESTORE_LAYERS)
     sparams = {"embed": params["embed"], "head": params["head"], "final_norm": params["final_norm"],
                "groups": [{k: _take_layers(v, SERVE_RESTORE_LAYERS) for k, v in params["groups"][0].items()}]}
@@ -2101,6 +2147,7 @@ def model_serving_full(rng, dev, GemmPolicy, kernels):
             eng, s = build(emu, prepare, pd, small, sparams)
             casts = kernels.launch_counts()["residue_cast"]
             small_runs[name] = eng.generate(batch, SERVE_NEW, return_logits=True)
+            peaks.append(torch.cuda.max_memory_allocated() / 2**30)
             print(f"  {SERVE_RESTORE_LAYERS} layers {name}: construction {s:.3f} s, {casts} casts", flush=True)
             if name == "restored" and casts:
                 raise AssertionError(f"prepared_dir: the second construction cast {casts} weights")
@@ -2117,7 +2164,21 @@ def model_serving_full(rng, dev, GemmPolicy, kernels):
               f"== prepared == unprepared, bitwise", flush=True)
     finally:
         shutil.rmtree(pdir, ignore_errors=True)
-    print(f"  phase 7b peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    nat_small = ServeEngine(model_of(NATIVE, small), sparams, cache_len, SERVE_B).generate(
+        batch, SERVE_NEW, return_logits=True)
+    p64 = _map_tensors(sparams, lambda t: t.double())
+    wide_tok, wide_logits = ServeEngine(model_of(NATIVE, small), p64, cache_len, SERVE_B).generate(
+        batch, SERVE_NEW, return_logits=True)
+    del p64
+    compared, worst = check_tokens_and_logits(f"{SERVE_RESTORE_LAYERS} layers, emulated against float64 linears",
+                                              base_tok, base_logits, wide_tok, wide_logits, SERVE_WIDE_TOL)
+    prefill_dist = lambda logits: float(((logits[:, 0].double() - wide_logits[:, 0].double()).abs().amax(-1)  # noqa: E731
+                                         / wide_logits[:, 0].double().abs().amax(-1)).max())
+    print(f"  {SERVE_RESTORE_LAYERS} layers at full width against the model with float64 linears, prefill + "
+          f"{SERVE_NEW} decode steps: emulated logits within {worst:.3e} x max|logits| (bound {SERVE_WIDE_TOL}), "
+          f"{compared} tokens compared, equal; the prefill's logits: emulated {prefill_dist(base_logits):.3e}, native "
+          f"float32 {prefill_dist(nat_small[1]):.3e}", flush=True)
+    print(f"  phase 7b peak memory {max(peaks):.2f} GiB (the largest engine's)", flush=True)
     return phase
 
 

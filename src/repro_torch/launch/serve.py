@@ -11,7 +11,8 @@ plain versions).  It serves the arch's reduced config with random weights
 (`torch.Generator` seed 0).  An emulated ``--backend`` scopes the model
 onto that `GemmPolicy` via `repro_torch.use_policy` around the config
 lookup and serves in float32, as the reference does; ``--execution``
-picks the residue backend (``sharded`` raises, as the policy does).
+picks the residue backend (``sharded`` raises, as the policy does, and
+so does a ``--residue`` mesh axis other than 1).
 ``--prepare`` residue-casts the weights once at startup with the selected
 execution; ``--prepared-dir`` keeps those planes so a restarted server
 restores them instead of preparing again.  Only the attention-family
@@ -29,10 +30,22 @@ import torch
 from .. import use_policy
 from ..configs import ARCHS, get_reduced
 from ..core.executor import resolve_device
-from ..core.policy import GemmPolicy
+from ..core.policy import _EXECUTION_ITEM, GemmPolicy, _not_ported
 from ..models import Model
 from ..serve import ServeEngine
 from ..tune.cli import add_calibration_args, apply_calibration_args
+
+
+def prompt_batch(cfg, batch: int, prompt_len: int, rng: np.random.Generator, device) -> dict:
+    """Random prompts for `ServeEngine.generate`: (batch, prompt_len) int32
+    tokens drawn from `rng`, then, for a frontend arch, its prefix
+    embeddings (std 0.02, float32)."""
+    out = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int32)).to(device)}
+    if cfg.frontend:
+        out["prefix_embeds"] = torch.from_numpy(
+            (rng.standard_normal((batch, cfg.n_prefix_embeds, cfg.d_model)) * 0.02).astype(np.float32)).to(device)
+    return out
 
 
 def main(argv=None) -> int:
@@ -56,7 +69,8 @@ def main(argv=None) -> int:
                     help="residue backend running the emulation plan (fp8: the e4m3 "
                          "digit-GEMM engine; fused: the one-launch megakernel)")
     ap.add_argument("--residue", type=int, default=1,
-                    help="residue mesh-axis size (sharded execution, not ported)")
+                    help="residue mesh-axis size (the sharded execution: not ported, "
+                         "so anything but 1 raises)")
     ap.add_argument("--mode", default="fast", choices=["fast", "accu", "auto"],
                     help="paper scaling mode; 'auto' picks the cheapest mode meeting "
                          "--rtol per shape")
@@ -72,6 +86,8 @@ def main(argv=None) -> int:
     apply_calibration_args(args, device=device)
     if args.mode == "auto" and args.rtol is None:
         ap.error("--mode auto needs an accuracy target: pass --rtol")
+    if args.residue != 1:
+        raise _not_ported(f"--residue {args.residue} (a residue mesh axis)", _EXECUTION_ITEM["sharded"])
 
     scope = contextlib.nullcontext()
     if args.backend != "native":
@@ -90,12 +106,7 @@ def main(argv=None) -> int:
         prepared_dir=args.prepared_dir,
         device=device,
     )
-    rng = np.random.default_rng(0)
-    batch = {"tokens": torch.from_numpy(
-        rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)).to(device)}
-    if cfg.frontend:
-        batch["prefix_embeds"] = torch.from_numpy(
-            (rng.standard_normal((args.batch, npre, cfg.d_model)) * 0.02).astype(np.float32)).to(device)
+    batch = prompt_batch(cfg, args.batch, args.prompt_len, np.random.default_rng(0), device)
     gen = torch.Generator(device=device).manual_seed(1)
     t0 = time.perf_counter()
     toks = eng.generate(batch, args.new_tokens, args.temperature, gen)

@@ -212,3 +212,27 @@ def test_serve_cli_on_the_cpu(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve_cli.main(["--arch", "starcoder2-3b", "--new-tokens", "1"])
+
+
+def test_serve_cli_residue_axis_raises():
+    """--residue names the sharded execution's mesh axis, which is not
+    ported: anything but 1 raises instead of being ignored."""
+    with pytest.raises(NotImplementedError, match="--residue 2"):
+        serve_cli.main(["--arch", "starcoder2-3b", "--backend", "ozaki2_f32", "--execution", "kernel",
+                        "--residue", "2", "--batch", "1", "--prompt-len", "4", "--new-tokens", "1",
+                        "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "internvl2-26b"])
+def test_prompt_batch(arch):
+    """The CLI's prompts: tokens in the vocabulary, prefix embeddings for a
+    frontend arch, the same draws from the same seed."""
+    cfg = get_reduced(arch)
+    a = serve_cli.prompt_batch(cfg, 2, 5, np.random.default_rng(0), torch.device("cpu"))
+    b = serve_cli.prompt_batch(cfg, 2, 5, np.random.default_rng(0), torch.device("cpu"))
+    assert a["tokens"].shape == (2, 5) and a["tokens"].dtype == torch.int32
+    assert 0 <= int(a["tokens"].min()) and int(a["tokens"].max()) < cfg.vocab
+    assert ("prefix_embeds" in a) == bool(cfg.frontend)
+    if cfg.frontend:
+        assert a["prefix_embeds"].shape == (2, cfg.n_prefix_embeds, cfg.d_model)
+    assert all(torch.equal(a[k], b[k]) for k in a)

@@ -72,6 +72,7 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     from repro_torch.core.policy import NATIVE
     from repro_torch.kernels import build
+    from repro_torch.launch.serve import prompt_batch
     from repro_torch.models import Model
     from repro_torch.models.layers import apply_norm
     from repro_torch.models.transformer import layer_params
@@ -85,7 +86,7 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch, dtype="float32")
     params = Model(cfg).init(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
-    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (4, 128)).astype(np.int32)).to(dev)}
+    batch = prompt_batch(cfg, 4, 128, rng, dev)
     emulated = GemmPolicy(backend="ozaki2_f32", execution="kernel")
     (bk, mk, _), = cfg.layer_groups
 
