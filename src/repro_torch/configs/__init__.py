@@ -2,11 +2,10 @@
 
 The port's copy of `repro.configs`.  Each module defines CONFIG (the
 published configuration) and REDUCED (same family, small dims, for the
-CPU tests), the reference's data unchanged.  The six attention-family
-archs (qwen2.5-32b, starcoder2-3b, nemotron-4-15b, minitron-4b,
-internvl2-26b, musicgen-medium) run; the other four build their param and
-cache shapes, and their SSD, RG-LRU and MoE blocks raise until ROADMAP
-queue 1, item 9b.
+CPU tests), the reference's data unchanged.  Every arch runs: the six
+attention-family archs, mamba2-130m (SSD), recurrentgemma-2b (RG-LRU
+and windowed attention) and the MoE archs granite-moe-3b-a800m and
+deepseek-moe-16b.
 """
 from __future__ import annotations
 
@@ -25,17 +24,6 @@ ARCHS = (
     "deepseek-moe-16b",
     "musicgen-medium",
 )
-
-#: the archs whose every layer is attention plus a dense MLP (they serve)
-ATTENTION_ARCHS = (
-    "qwen2.5-32b",
-    "starcoder2-3b",
-    "nemotron-4-15b",
-    "minitron-4b",
-    "internvl2-26b",
-    "musicgen-medium",
-)
-
 
 def _module(arch: str):
     from ..linalg import _no_ambient_policy

@@ -15,8 +15,8 @@ picks the residue backend (``sharded`` raises, as the policy does, and
 so does a ``--residue`` mesh axis other than 1).
 ``--prepare`` residue-casts the weights once at startup with the selected
 execution; ``--prepared-dir`` keeps those planes so a restarted server
-restores them instead of preparing again.  Only the attention-family
-archs serve (`configs.ATTENTION_ARCHS`); the others raise.
+restores them instead of preparing again.  Every arch of
+`configs.ARCHS` serves.
 """
 from __future__ import annotations
 

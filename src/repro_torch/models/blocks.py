@@ -8,14 +8,22 @@ kind:
   prefill(cfg, p, x, positions, cache) -> (y, cache)
   decode(cfg, p, x, cache, pos)        -> (y, cache)       (x: (B, 1, d))
 
-The attention block runs.  Its prefill and decode write the layer's cache
-tensors in place and return them (the reference returns a new cache and
-its engine donates the old one).  The SSD, RG-LRU and MoE blocks build
-their param and cache shapes, so every arch's trees and counts are the
-reference's; running them raises `NotImplementedError` until ROADMAP
-queue 1, item 9b ports them.
+Every block runs, op by op in the reference's order and dtypes.  Prefill
+and decode write the layer's cache tensors in place and return them (the
+reference returns a new cache and its engine donates the old one).  Where
+the reference scans (`lax.scan` over SSD chunks and MoE token groups,
+`lax.associative_scan` over the RG-LRU sequence) the port loops in Python
+over the chunks and groups and runs the associative scan's own odd/even
+recursion on strided slices.  The SSD scan, the RG-LRU scan and the MoE
+dispatch are plain tensor ops, as in the reference (no Pallas kernel
+there, so no hand-written kernel here); their linears go through
+`apply_linear` under the config's policy, and the router and expert
+products stay native, outside the policy, as in the reference.
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -23,19 +31,45 @@ from .config import ModelConfig
 from .layers import (
     AttnSpec,
     apply_linear,
+    apply_mlp,
     apply_rope,
     attention,
+    gelu,
     linear_abstract,
     mlp_abstract,
+    silu,
 )
-from .params import ParamMeta
+from .params import ParamMeta, torch_dtype
 
+_F32 = torch.float32
 _NEG_POS = 2**30  # sentinel "future" position for empty cache slots
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item 9b: the SSD, RG-LRU and MoE blocks)")
+def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """`torch.einsum` on the operands' common type, as `jnp.einsum`
+    promotes (a float32 activation against float64 weights computes in
+    float64); operands of one type pass unchanged."""
+    dt = functools.reduce(torch.promote_types, (o.dtype for o in ops))
+    return torch.einsum(eq, *(o.to(dt) for o in ops))
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.sigmoid` (`lax.logistic`): 1 / (1 + exp(-x))."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.softplus`: logaddexp(x, 0), with no linear branch above a
+    threshold (`torch.nn.functional.softplus` has one at 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _rms_gate(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """Mamba2's gated RMSNorm, norm(y * silu(z)) * scale, rounded once to
+    `dtype`."""
+    y = y * silu(z.to(_F32))
+    y = y * torch.rsqrt(torch.mean(y * y, dim=-1, keepdim=True) + 1e-6)
+    return (y * scale.to(_F32)).to(dtype)
 
 
 # =================================================================== attention
@@ -155,6 +189,103 @@ def ssd_abstract(cfg: ModelConfig) -> dict:
     }
 
 
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """(..., Q) -> (..., Q, Q): sum_{k=j+1..i} x_k for i >= j else -inf."""
+    cs = torch.cumsum(x, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    q = x.shape[-1]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    return seg.masked_fill(~mask, -math.inf)
+
+
+def ssd_scan(xbar, a_dt, bmat, cmat, init_state=None, chunk=128):
+    """Chunked state-space-duality scan (Mamba-2, alg. 'SSD').
+
+    xbar: (B,S,H,P) dt-weighted inputs; a_dt: (B,S,H) log-decays;
+    bmat/cmat: (B,S,N) (single group).  Returns y (B,S,H,P), final_state
+    (B,H,P,N).  All f32.  The reference's three-operand einsums run as two
+    products, the first two operands first; its inter-chunk `lax.scan` is a
+    loop over the chunks that keeps the state *before* each chunk.
+    """
+    b, s, h, p = xbar.shape
+    n = bmat.shape[-1]
+    chunk = min(chunk, s)
+    assert s % chunk == 0, f"sequence {s} is not a multiple of the SSD chunk {chunk}"
+    nc = s // chunk
+    xc = xbar.reshape(b, nc, chunk, h, p)
+    ac = a_dt.reshape(b, nc, chunk, h)
+    bc = bmat.reshape(b, nc, chunk, n)
+    cc = cmat.reshape(b, nc, chunk, n)
+
+    acs = torch.cumsum(ac, dim=2)  # (B,Nc,Q,H) inclusive
+    # intra-chunk (diagonal blocks)
+    l_mat = torch.exp(_segsum(ac.permute(0, 1, 3, 2)))  # (B,Nc,H,Q,Q)
+    g_mat = _einsum("bcin,bcjn->bcij", cc, bc)
+    y_diag = _einsum("bchij,bcjhp->bcihp", g_mat[:, :, None] * l_mat, xc)
+    # per-chunk end states
+    a_last = acs[:, :, -1:, :]  # (B,Nc,1,H)
+    decay_states = torch.exp(a_last - acs)  # (B,Nc,Q,H)
+    states = _einsum("bcjhn,bcjhp->bchpn", decay_states[..., None] * bc[:, :, :, None, :], xc)
+    # inter-chunk recurrence
+    chunk_decay = torch.exp(a_last[:, :, 0])  # (B,Nc,H)
+    carry = torch.zeros((b, h, p, n), dtype=xbar.dtype, device=xbar.device) if init_state is None else init_state
+    prev = []
+    for c in range(nc):
+        prev.append(carry)  # the state *before* chunk c
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)  # (B,Nc,H,P,N)
+    y_off = _einsum("bcin,bchpn->bcihp", cc, prev_states) * torch.exp(acs)[..., None]
+    y = (y_diag + y_off).reshape(b, s, h, p)
+    return y, carry
+
+
+def _causal_conv(x, w, b, carry=None):
+    """Depthwise causal conv along seq. x: (B,S,C); w: (W,C). carry:
+    (B,W-1,C), cast to x's dtype.  The taps sum in float32 from the first,
+    as the reference's `sum(...)`.  Returns (y in x's dtype, the new carry:
+    the last W-1 inputs)."""
+    width = w.shape[0]
+    pad = (
+        torch.zeros((x.shape[0], width - 1, x.shape[-1]), dtype=x.dtype, device=x.device)
+        if carry is None
+        else carry.to(x.dtype)
+    )
+    xp = torch.cat([pad, x], dim=1).to(_F32)
+    out = sum(xp[:, i: i + x.shape[1]] * w[i].to(_F32) for i in range(width))
+    new_carry = xp[:, -(width - 1):].to(x.dtype) if width > 1 else pad
+    return (out + b.to(_F32)).to(x.dtype), new_carry
+
+
+def _ssd_split(cfg: ModelConfig, p, x, conv_carry):
+    """in_proj, the split and the conv: (z, xin, bmat, cmat, dt, a, new
+    conv carry), the SiLU'd conv output and the rates in float32."""
+    di, gn, h = cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state, cfg.ssm_heads
+    zxbcdt = apply_linear(p["in_proj"], x, cfg.gemm_policy)
+    z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * gn, h], dim=-1)
+    xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_carry)
+    xbc = silu(xbc.to(_F32))
+    xin, bmat, cmat = torch.split(xbc, [di, gn, gn], dim=-1)
+    dt = _softplus(dt_raw.to(_F32) + p["dt_bias"])  # (B,S,H)
+    a = -torch.exp(p["a_log"])  # (H,)
+    return z, xin, bmat, cmat, dt, a, new_conv
+
+
+def _ssd_inner(cfg: ModelConfig, p, x, conv_carry, state, chunk=128):
+    b, s, _ = x.shape
+    n = cfg.ssm_state
+    z, xin, bmat, cmat, dt, a, new_conv = _ssd_split(cfg, p, x, conv_carry)
+    xh = xin.reshape(b, s, cfg.ssm_heads, cfg.ssm_headdim)
+    y, final_state = ssd_scan(xh * dt[..., None], dt * a, bmat[..., :n], cmat[..., :n], state, chunk)
+    y = y + p["d_skip"][:, None] * xh
+    y = _rms_gate(y.reshape(b, s, cfg.d_inner), z, p["norm"], x.dtype)
+    return apply_linear(p["out_proj"], y, cfg.gemm_policy), new_conv, final_state
+
+
+def ssd_apply(cfg: ModelConfig, p, x, positions):
+    y, _, _ = _ssd_inner(cfg, p, x, None, None)
+    return y
+
+
 def ssd_cache_abstract(cfg: ModelConfig, b: int, cache_len: int) -> dict:
     di, gn = cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state
     return {
@@ -168,16 +299,28 @@ def ssd_cache_abstract(cfg: ModelConfig, b: int, cache_len: int) -> dict:
     }
 
 
-def ssd_apply(cfg: ModelConfig, p, x, positions):
-    raise _not_ported("the Mamba2 SSD block")
-
-
 def ssd_prefill(cfg: ModelConfig, p, x, positions, cache):
-    raise _not_ported("the Mamba2 SSD block")
+    # the reference starts from the cache times 0, not from the cache
+    y, conv, state = _ssd_inner(cfg, p, x, cache["conv"] * 0, cache["state"] * 0)
+    cache["conv"].copy_(conv)
+    cache["state"].copy_(state)
+    return y, cache
 
 
 def ssd_decode(cfg: ModelConfig, p, x, cache, pos):
-    raise _not_ported("the Mamba2 SSD block")
+    b = x.shape[0]
+    n = cfg.ssm_state
+    z, xin, bmat, cmat, dt, a, new_conv = _ssd_split(cfg, p, x, cache["conv"])
+    xin, bmat, cmat, dt = xin[:, 0], bmat[:, 0], cmat[:, 0], dt[:, 0]  # (B, C), (B, H)
+    da = torch.exp(dt * a)  # (B,H)
+    xh = xin.reshape(b, cfg.ssm_heads, cfg.ssm_headdim)
+    state = cache["state"] * da[..., None, None] + _einsum("bhp,bn->bhpn", dt[..., None] * xh, bmat[..., :n])
+    y = _einsum("bhpn,bn->bhp", state, cmat[..., :n])
+    y = y + p["d_skip"][:, None] * xh
+    y = _rms_gate(y.reshape(b, 1, cfg.d_inner), z, p["norm"], x.dtype)
+    cache["conv"].copy_(new_conv)
+    cache["state"].copy_(state)
+    return apply_linear(p["out_proj"], y, cfg.gemm_policy), cache
 
 
 # =================================================================== rg-lru
@@ -198,6 +341,63 @@ def rglru_abstract(cfg: ModelConfig) -> dict:
     }
 
 
+_LRU_C = 8.0
+
+
+def _rglru_gates(cfg, p, xc):
+    r = _sigmoid(apply_linear(p["w_a"], xc, cfg.gemm_policy).to(_F32))
+    i = _sigmoid(apply_linear(p["w_x"], xc, cfg.gemm_policy).to(_F32))
+    # log a_t = -c * r_t * softplus(lam)  (a = sigmoid(lam)^(c r) in griffin)
+    log_a = -_LRU_C * r * _softplus(p["lam"])
+    a = torch.exp(log_a)
+    gated_x = i * xc.to(_F32)
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * gated_x
+    return a, b
+
+
+def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t along dim 1 (h_{-1} = 0): the `h` of
+    `jax.lax.associative_scan` with the combine (al ar, bl ar + br), by its
+    own recursion, so the products pair up as the reference's do: combine
+    adjacent pairs, scan the half, then fill in the even positions.  O(log
+    S) steps of elementwise ops on strided slices.  The scan's cumulative
+    `a` never enters `h`, so it is not formed."""
+    s = a.shape[1]
+    if s < 2:
+        return b
+    odd = _linear_scan(a[:, 0:-1:2] * a[:, 1::2], b[:, 0:-1:2] * a[:, 1::2] + b[:, 1::2])
+    head = odd[:, :-1] if s % 2 == 0 else odd
+    even = torch.cat([b[:, :1], head * a[:, 2::2] + b[:, 2::2]], dim=1)
+    # the reference interleaves by zero padding and an add, so a -0.0
+    # comes out +0.0: + 0.0 does the same
+    out = b.new_empty(b.shape)
+    out[:, 0::2] = even
+    out[:, 1::2] = odd
+    return out + 0.0
+
+
+def _rglru_apply_seq(cfg, p, xc, h0=None):
+    """Linear recurrence h_t = a_t h_{t-1} + b_t via associative scan."""
+    a, b = _rglru_gates(cfg, p, xc)  # (B,S,W) each
+    if h0 is not None:
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    return _linear_scan(a, b)  # (B,S,W) f32
+
+
+def _rglru_in(cfg, p, x):
+    gate = gelu(apply_linear(p["in_gate"], x, cfg.gemm_policy).to(_F32))
+    xb = apply_linear(p["in_x"], x, cfg.gemm_policy)
+    return gate, xb
+
+
+def rglru_apply(cfg: ModelConfig, p, x, positions):
+    gate, xb = _rglru_in(cfg, p, x)
+    xc, _ = _causal_conv(xb, p["conv_w"], p["conv_b"])
+    h = _rglru_apply_seq(cfg, p, xc)
+    y = (h * gate).to(x.dtype)
+    return apply_linear(p["out"], y, cfg.gemm_policy)
+
+
 def rglru_cache_abstract(cfg: ModelConfig, b: int, cache_len: int) -> dict:
     w = cfg.lru_width
     return {
@@ -206,16 +406,27 @@ def rglru_cache_abstract(cfg: ModelConfig, b: int, cache_len: int) -> dict:
     }
 
 
-def rglru_apply(cfg: ModelConfig, p, x, positions):
-    raise _not_ported("the RG-LRU block")
-
-
 def rglru_prefill(cfg: ModelConfig, p, x, positions, cache):
-    raise _not_ported("the RG-LRU block")
+    gate, xb = _rglru_in(cfg, p, x)
+    xc, conv = _causal_conv(xb, p["conv_w"], p["conv_b"], cache["conv"] * 0)
+    h = _rglru_apply_seq(cfg, p, xc)
+    y = (h * gate).to(x.dtype)
+    out = apply_linear(p["out"], y, cfg.gemm_policy)
+    cache["conv"].copy_(conv)
+    cache["h"].copy_(h[:, -1])
+    return out, cache
 
 
 def rglru_decode(cfg: ModelConfig, p, x, cache, pos):
-    raise _not_ported("the RG-LRU block")
+    gate, xb = _rglru_in(cfg, p, x)
+    xc, conv = _causal_conv(xb, p["conv_w"], p["conv_b"], cache["conv"])
+    a, b = _rglru_gates(cfg, p, xc[:, 0])
+    h = a * cache["h"] + b
+    y = (h[:, None] * gate).to(x.dtype)
+    out = apply_linear(p["out"], y, cfg.gemm_policy)
+    cache["conv"].copy_(conv)
+    cache["h"].copy_(h)
+    return out, cache
 
 
 # =================================================================== moe
@@ -235,8 +446,73 @@ def moe_abstract(cfg: ModelConfig) -> dict:
     return out
 
 
+def moe_capacity(cfg: ModelConfig, t: int) -> int:
+    """Slots per expert for a group of t tokens."""
+    k = cfg.moe_topk
+    return max(k, int(math.ceil(cfg.moe_capacity_factor * t * k / cfg.moe_experts)))
+
+
+def _route(cfg: ModelConfig, router, xg):
+    """One group's routing: the router's logits (a native float32
+    product), their probabilities (T, E) (`jax.nn.softmax` op by op) and
+    the top k of those (values, indices) from a stable descending sort, so
+    that ties go to the lower index as in `jax.lax.top_k` (`torch.topk`
+    leaves tie order open)."""
+    rt = torch.promote_types(_F32, router.dtype)
+    logits = (xg.to(_F32).to(rt) @ router.to(rt)).to(_F32)
+    ex = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
+    probs = ex / torch.sum(ex, dim=-1, keepdim=True)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.moe_topk
+    return logits, probs, top.values[:, :k], top.indices[:, :k]
+
+
+def _moe_group(cfg: ModelConfig, p, xg):
+    """GShard-style top-k dispatch for one token group. xg: (T, d)."""
+    t = xg.shape[0]
+    e = cfg.moe_experts
+    dt = torch_dtype(cfg.dtype)
+    cap = moe_capacity(cfg, t)
+    _, probs, topv, topi = _route(cfg, p["router"], xg)
+    topv = topv / torch.clamp_min(torch.sum(topv, dim=-1, keepdim=True), 1e-9)
+    experts = torch.arange(e, device=xg.device)
+    onehot = (topi[..., None] == experts).to(_F32)  # (T, K, E)
+    # slot position of each (token, k) inside its expert queue
+    pos_in_e = torch.cumsum(onehot.reshape(-1, e), dim=0).reshape(onehot.shape) - 1.0
+    slot_idx = torch.sum(pos_in_e * onehot, dim=-1)  # (T, K)
+    # a slot >= cap matches no column: an all-zero row, the capacity drop
+    # (jax.nn.one_hot's behaviour; torch's one_hot would raise)
+    slots = torch.arange(cap, dtype=torch.int32, device=xg.device)
+    oh_slot = (slot_idx.to(torch.int32)[..., None] == slots).to(_F32)
+    combine = _einsum("tke,tkc->tec", onehot * topv[..., None], oh_slot)
+    dispatch = (combine > 0).to(dt)  # (T, E, C)
+    xe = _einsum("td,tec->ecd", xg.to(dt), dispatch)  # (E, C, d)
+    gate = silu(_einsum("ecd,edf->ecf", xe, p["gate"]).to(_F32))
+    up = _einsum("ecd,edf->ecf", xe, p["up"]).to(_F32)
+    ye = _einsum("ecf,efd->ecd", (gate * up).to(dt), p["down"])
+    out = _einsum("ecd,tec->td", ye.to(_F32), combine)
+    # load-balance aux loss (Switch): E * mean(frac_tokens * mean_prob)
+    frac = torch.mean(onehot[:, 0, :], dim=0)
+    aux = e * torch.sum(frac * torch.mean(probs, dim=0))
+    return out.to(xg.dtype), aux
+
+
 def moe_apply(cfg: ModelConfig, p, x, group_size: int | None = None):
-    raise _not_ported("the MoE MLP")
+    """The MoE MLP over groups of tokens, one group after another (the
+    reference's `lax.scan`; its `vmap` branch for a mesh layout computes
+    the same values), plus the shared SwiGLU expert under the policy."""
+    b, s, d = x.shape
+    tokens = x.reshape(-1, d)
+    t = tokens.shape[0]
+    group_size = group_size or cfg.moe_group_size
+    g = max(1, t // min(group_size, t))
+    if t % g:
+        g = 1
+    ys, auxs = zip(*(_moe_group(cfg, p, xg) for xg in tokens.reshape(g, t // g, d)))
+    y = torch.stack(ys).reshape(b, s, d)
+    if cfg.moe_shared:
+        y = y + apply_mlp("swiglu", p["shared"], x, cfg.gemm_policy)
+    return y, torch.mean(torch.stack(auxs))
 
 
 BLOCKS = {

@@ -8,8 +8,9 @@ stacked params with `lax.scan`, the port loops over the layers in Python
 and gives layer i ``leaf[i]`` (a prepared weight's `layer(i)`).  It runs
 eagerly: no jit, no `torch.compile`.
 
-Serving: `init_cache`, `prefill` and `decode_step`; the attention layers
-write their cache tensors in place (see `blocks`).  Training: `loss`,
+Serving: `init_cache`, `prefill` and `decode_step`; every block writes
+its layer's cache tensors (the attention ring, the SSD's conv carry and
+state, the RG-LRU's conv carry and h) in place (see `blocks`).  Training: `loss`,
 differentiable through autograd and, under an emulated policy, the
 emulated matmul's backward; with ``cfg.remat`` a layer's activations are
 recomputed in the backward (`torch.utils.checkpoint`).

@@ -160,3 +160,24 @@ def test_reference_checkpoint_restores_into_the_port(tmp_path):
         x = torch.from_numpy(phi_matrix(np.random.default_rng(0), (3, got.operand_shape[0]), 0.5, np.float32))
         assert torch.equal(linalg.matmul(x, got.layer(0), policy=tpol, device="cpu"),
                            linalg.matmul(x, tmlp[name]["w"][0], policy=tpol, device="cpu"))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-2b", "granite-moe-3b-a800m",
+                                  "deepseek-moe-16b"])
+def test_new_block_params_cross_the_packages(tmp_path, arch):
+    """An SSD, RG-LRU or MoE arch's param tree (reduced, float32: the
+    conv, the recurrences' float32 vectors, the router and the stacked
+    experts) saved by the port restores into the reference bitwise, and
+    the reference's save of it back into the port."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import Model
+
+    params = Model(get_reduced(arch, dtype="float32")).init(torch.Generator().manual_seed(0), device="cpu")
+    Checkpointer(str(tmp_path / "port")).save(1, params)
+    jparams = JCheckpointer(str(tmp_path / "port")).restore(1, jax.tree.map(lambda t: 0, params))
+    for a, b in zip(_leaves(params), jax.tree.leaves(jparams)):
+        np.testing.assert_array_equal(np.asarray(b), a.numpy())
+    JCheckpointer(str(tmp_path / "ref")).save(2, jparams)
+    back = Checkpointer(str(tmp_path / "ref")).restore(2, params, device="cpu")
+    for a, b in zip(_leaves(params), _leaves(back)):
+        assert _same_bits(a, b)

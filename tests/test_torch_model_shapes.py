@@ -4,8 +4,8 @@ interop helpers, against `repro`'s.
 * bfloat16 models against the reference's op-by-op run (`jax.disable_jit`).
 * The ten published configs: parameter counts, every param and cache
   shape and dtype, and the input shapes of each cell.
-* `materialize`, the blocks still to port (they raise), and the interop
-  helpers that carry weights and configs across.
+* `materialize`, and the interop helpers that carry weights and configs
+  across.
 """
 import dataclasses
 
@@ -25,17 +25,17 @@ from repro.configs.shapes import input_specs as j_input_specs
 from repro.core.policy import GemmPolicy as JPolicy
 from repro.models import Model as JModel
 from repro_torch import use_policy
-from repro_torch.configs import ARCHS, ATTENTION_ARCHS, get_config, get_reduced
+from repro_torch.configs import ARCHS, get_config, get_reduced
 from repro_torch.configs.shapes import SHAPES, applicable, input_specs
 from repro_torch.core.policy import NATIVE, GemmPolicy
 from repro_torch.interop import model_config_from_fields, params_from_numpy
-from repro_torch.models import Model, blocks
+from repro_torch.models import Model
 from repro_torch.models.params import ParamMeta, materialize
 
 B, S = 2, 32
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-32b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "starcoder2-3b", "mamba2-130m"])
 def test_bfloat16_forward_matches_op_by_op_reference(rng, arch):
     """A bfloat16 model's logits against the reference's own forward run op
     by op (`jax.disable_jit`), which the port mirrors: within 2e-2 x
@@ -45,7 +45,15 @@ def test_bfloat16_forward_matches_op_by_op_reference(rng, arch):
     reference draws its weights anew in each process).  The compiled
     reference is another computation in bfloat16: inside its `lax.scan`
     XLA keeps float32 excess precision between fused ops, and its logits
-    move up to 9e-2 x max|logits| from its own op-by-op run."""
+    move up to 9e-2 x max|logits| from its own op-by-op run.  mamba2-130m
+    computes its SSD scan in float32 from bfloat16 linears and is held the
+    same way (2.7e-3 to 5.8e-3 x max|logits| over five weight draws).
+    recurrentgemma-2b is not: at the reference's init many RG-LRU gates
+    saturate, where sqrt(1 - exp(2 log a)) either cancels in float32 or
+    meets its 1e-12 floor, so one moved bfloat16 ulp can move such a
+    channel's input by two orders of magnitude (3.4e-2 x max|logits| in
+    one draw); its
+    bfloat16 blocks are held in `tests/test_torch_blocks.py`."""
     jcfg = dataclasses.replace(j_get_reduced(arch), dtype="bfloat16")
     jmodel = JModel(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
@@ -89,8 +97,6 @@ def test_full_config_shapes_metadata(arch):
 
 def test_registry_matches_reference():
     assert ARCHS == J_ARCHS and set(SHAPES) == set(J_SHAPES)
-    assert set(ATTENTION_ARCHS) == {a for a in ARCHS if get_reduced(a).block_pattern == ("attn",)
-                                    and get_reduced(a).mlp != "moe"}
     pol = GemmPolicy(backend="ozaki2_f32", execution="kernel")
     with use_policy(pol):
         assert get_reduced("starcoder2-3b").gemm_policy == pol
@@ -134,17 +140,6 @@ def test_model_init_on_the_card_by_default():
     params = Model(cfg).init(device="cpu")
     assert params["embed"].device.type == "cpu"
     assert params["groups"][0]["block"]["q"]["w"].shape == (1, 128, 128)
-
-
-@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-2b", "granite-moe-3b-a800m"])
-def test_unported_blocks_raise(arch):
-    cfg = get_reduced(arch, dtype="float32")
-    model = Model(cfg)
-    params = model.init(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        model.forward(params, {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        blocks.moe_apply(cfg, {}, torch.zeros((1, 8, cfg.d_model)))
 
 
 def test_params_from_numpy_carries_bfloat16_bits(rng):

@@ -6,9 +6,12 @@ weights and the serve CLI, on the CPU.
   every step whose context is still the same and where the reference's
   top-2 margin exceeds 2e-4 x max|logits|, twice the logit tolerance of
   `tests/test_torch_models.py` (both top logits may move by it).
-* Prepared serving against unprepared serving, a `prepared_dir` restore
-  against a fresh preparation, and a prepared stack's per-layer view
-  against preparing that layer alone: bit for bit.
+* Prepared serving against unprepared serving (the attention archs and
+  the SSD, RG-LRU and MoE archs), a `prepared_dir` restore against a
+  fresh preparation, and a prepared stack's per-layer view against
+  preparing that layer alone: bit for bit.  Preparation selects the
+  reference's weights on every arch's tree.
+* The serve CLI serves every arch on the CPU.
 """
 import dataclasses
 import warnings
@@ -22,8 +25,11 @@ import torch
 import repro  # noqa: F401
 from repro.configs import get_reduced as j_get_reduced
 from repro.models import Model as JModel
+from repro.core.executor import PreparedOperand as JPreparedOperand
+from repro.core.policy import GemmPolicy as JPolicy
+from repro.core.policy import prepare_weights as j_prepare_weights
 from repro.serve import ServeEngine as JServeEngine
-from repro_torch.configs import get_reduced
+from repro_torch.configs import ARCHS, get_reduced
 from repro_torch.core.executor import PreparedOperand
 from repro_torch.core.policy import GemmPolicy, prepare_weights, prepared_like
 from repro_torch.interop import model_config_from_fields, params_from_numpy
@@ -75,8 +81,11 @@ def test_greedy_tokens_match_reference_engine(rng):
     assert compared >= B * NEW // 2
 
 
-def _engine_cfg(execution, n_layers=2):
-    return get_reduced("starcoder2-3b", dtype="float32", n_layers=n_layers,
+NEW_BLOCK_ARCHS = ("mamba2-130m", "recurrentgemma-2b", "granite-moe-3b-a800m", "deepseek-moe-16b")
+
+
+def _engine_cfg(execution, n_layers=2, arch="starcoder2-3b"):
+    return get_reduced(arch, dtype="float32", n_layers=n_layers,
                        gemm_policy=GemmPolicy(backend="ozaki2_f32", execution=execution))
 
 
@@ -97,6 +106,64 @@ def test_prepared_serving_bitwise(rng, execution):
     t1, l1 = plain.generate(batch, 3, return_logits=True)
     t2, l2 = prepped.generate(batch, 3, return_logits=True)
     assert torch.equal(t1, t2) and _same_bits(l1, l2)
+
+
+@pytest.mark.parametrize("arch", NEW_BLOCK_ARCHS)
+def test_prepared_serving_bitwise_new_blocks(rng, arch):
+    """The SSD, RG-LRU and MoE archs (all their layers; recurrentgemma's
+    third is its attention) served prepared and unprepared on `kernel`
+    (prefill and two decode steps): the same tokens and logits, bit for
+    bit."""
+    cfg = get_reduced(arch, dtype="float32", gemm_policy=GemmPolicy(backend="ozaki2_f32", execution="kernel"))
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = _prompt(rng, cfg, b=B)
+    plain = ServeEngine(model, params, cache_len=PROMPT + 2, batch_size=B, device="cpu")
+    prepped = ServeEngine(model, params, cache_len=PROMPT + 2, batch_size=B, prepare=True, device="cpu")
+    t1, l1 = plain.generate(batch, 2, return_logits=True)
+    t2, l2 = prepped.generate(batch, 2, return_logits=True)
+    assert torch.isfinite(l1).all()
+    assert torch.equal(t1, t2) and _same_bits(l1, l2)
+
+
+def _prepared_paths(tree, kind, path=""):
+    """The paths of the `kind` instances in a tree of dicts and lists."""
+    if isinstance(tree, kind):
+        return {path}
+    if isinstance(tree, dict):
+        return set().union(*(_prepared_paths(v, kind, f"{path}/{k}") for k, v in tree.items()))
+    if isinstance(tree, (list, tuple)):
+        return set().union(*(_prepared_paths(v, kind, f"{path}/{i}") for i, v in enumerate(tree)))
+    return set()
+
+
+# the linears each new block kind prepares (the "w" of each linear bundle);
+# the conv, the router and the experts' stacked gate/up/down are not
+PREPARED_OF = {
+    "mamba2-130m": {"block/in_proj", "block/out_proj"},
+    "recurrentgemma-2b": {"block/in_x", "block/in_gate", "block/w_a", "block/w_x", "block/out",
+                          "block/q", "block/k", "block/v", "block/o", "mlp/gate", "mlp/up", "mlp/down"},
+    "granite-moe-3b-a800m": {"block/q", "block/k", "block/v", "block/o"},
+    "deepseek-moe-16b": {"block/q", "block/k", "block/v", "block/o", "mlp/gate", "mlp/up", "mlp/down",
+                         "mlp/shared/gate", "mlp/shared/up", "mlp/shared/down"},
+}
+
+
+@pytest.mark.parametrize("arch", NEW_BLOCK_ARCHS)
+def test_prepare_weights_selects_the_references_leaves(arch):
+    """`prepare_weights` (through `prepared_like`, its structure) prepares
+    exactly the leaves the reference's `prepare_weights` selects on the
+    same tree: each linear bundle's "w"."""
+    cfg = get_reduced(arch, dtype="float32")
+    jcfg = dataclasses.replace(j_get_reduced(arch), dtype="float32")
+    jpol = JPolicy(backend="ozaki2_f32", execution="kernel", interpret=True)
+    jshapes = jax.eval_shape(lambda p: j_prepare_weights(p, jpol), JModel(jcfg).param_shapes())
+    want = _prepared_paths(jshapes, JPreparedOperand)
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    got = _prepared_paths(prepared_like(params, GemmPolicy(backend="ozaki2_f32", execution="kernel")),
+                          PreparedOperand)
+    assert got == want
+    assert {p.split("/", 3)[3].removesuffix("/w") for p in got} == PREPARED_OF[arch]
 
 
 @pytest.mark.parametrize("mode", ["fast", "accu"])
@@ -212,6 +279,15 @@ def test_serve_cli_on_the_cpu(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve_cli.main(["--arch", "starcoder2-3b", "--new-tokens", "1"])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_cli_serves_every_arch(capsys, arch):
+    """`python -m repro_torch.launch.serve --arch ARCH` on the CPU, the
+    emulated kernel execution prepared, for each of the ten archs."""
+    assert serve_cli.main(["--arch", arch, "--backend", "ozaki2_f32", "--execution", "kernel", "--prepare",
+                           "--batch", "1", "--prompt-len", "8", "--new-tokens", "2", "--device", "cpu"]) == 0
+    assert f"[{arch}] (1, 2) in" in capsys.readouterr().out
 
 
 def test_serve_cli_residue_axis_raises():
