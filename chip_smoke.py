@@ -257,14 +257,56 @@ failure is caught.
    included, as they are), under the routing rule, beside native float32
    linears' distance (printed, not held).
 
+9. Training (`repro_torch.train`), float32, the train CLI's AdamW (lr
+   3e-3, grad clip 5.0), remat on:
+   (a) every arch reduced under `GemmPolicy(backend="ozaki2_f32",
+       execution="kernel")`: layer 0's linears of each kind at the train
+       shape (2, 32, k), forward, dX and dW card == cpu bitwise; one
+       `make_train_step` step on the card and on the CPU from the same
+       weights (drawn on the CPU, moved) and `SyntheticLM` batch: the loss
+       within TRAIN_LOSS_TOL (1e-4; recurrentgemma-2b 2e-3) relative and
+       every grad leaf within TRAIN_GRAD_TOL (1e-3; recurrentgemma-2b
+       1e-2) x its max|g| (MoE archs: every token routed alike on both,
+       any flip fails), 16 launches a linear (forward, recompute, dX, dW);
+       reduced starcoder2-3b (1 layer) under `ozaki2_c64` on `kernel`
+       (karatsuba_fused): layer 0's linears at (2, 32, k) card == cpu
+       bitwise, its loss within 1e-3 of native; and its grads (2 layers)
+       under deterministic algorithms on `kernel`, `fused`, `fp8` and
+       `per_modulus_kernel`, bitwise equal;
+   (b) mamba2-130m as published (24 layers, d_model 768, vocab 50280),
+       B = 8 x S = 256, weights from torch.Generator seed 0 on the card:
+       layer 0's linears at the train shape card == cpu bitwise; step 0 on
+       native and `kernel`, loss and grad_norm within 1e-3 relative; 6
+       steps of `train_loop` (cosine warm-up 2 of 6) on each, printing the
+       losses, step ms (median of steps 2-6, from the batch hook after a
+       synchronize to the step's log line, after the loss was read),
+       tokens/s, peak memory since the state's construction and launches
+       a step (768 = 16 x 48 linears on `kernel`, from the counters); the
+       resume under deterministic algorithms: 3 steps, a blocking save, a
+       restore bitwise equal to the live state, and step 3 from both with
+       equal loss and state bits;
+   (c) starcoder2-3b at full width (d_model 3072, d_ff 12288, vocab 49152)
+       with 2 of its 30 layers, B = 4 x S = 256: layer 0's six linears at
+       (4, 256, k), forward, dX and dW card == cpu bitwise on 8 of every
+       64 rows and columns of each output (`train_linears(sampled=True)`);
+       2 steps of `train_loop` on native and `kernel` with (b)'s prints,
+       step-0 losses within 1e-3;
+   (d) the train CLI in subprocesses (mamba2-130m reduced, `kernel`, 10
+       steps into a checkpoint directory, which saves step 10, then 12):
+       both exit 0, the second resumes at step 10 and runs steps 10 and
+       11, every loss finite.
+
 The last lines are the kernels' JSON record (with each kernel's launches
-in phase 7b, `serve_launches`, and in phase 8, `blocks_serve_launches`),
+in phase 7b, `serve_launches`, in phase 8, `blocks_serve_launches`, and in
+phase 9, `train_launches`: 9a's card steps, 9b's and 9c's steps),
 the card's name and power limit from nvidia-smi, and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import pathlib
 import re
 import statistics
@@ -274,7 +316,11 @@ import tempfile
 import time
 
 import numpy as np
-import torch
+
+# phase 9's deterministic checks run cuBLAS under torch.use_deterministic_algorithms,
+# which needs this before CUDA starts (32 MiB, the Hopper default's size)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+import torch  # noqa: E402
 
 SEED = 0
 PHI = 0.5
@@ -2202,6 +2248,7 @@ def model_serving_full(rng, dev, GemmPolicy, kernels):
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.models import Model
     from repro_torch.serve import ServeEngine
+    from repro_torch.tree import tree_map
 
     cfg = get_config("starcoder2-3b", dtype="float32")
     emu = GemmPolicy(backend="ozaki2_f32", execution="kernel")
@@ -2310,7 +2357,7 @@ def model_serving_full(rng, dev, GemmPolicy, kernels):
         shutil.rmtree(pdir, ignore_errors=True)
     nat_small = ServeEngine(model_of(NATIVE, small), sparams, cache_len, SERVE_B).generate(
         batch, SERVE_NEW, return_logits=True)
-    p64 = _map_tensors(sparams, lambda t: t.double())
+    p64 = tree_map(lambda t: t.double(), sparams)
     wide_tok, wide_logits = ServeEngine(model_of(NATIVE, small), p64, cache_len, SERVE_B).generate(
         batch, SERVE_NEW, return_logits=True)
     del p64
@@ -2377,6 +2424,7 @@ def model_serving_blocks(rng, dev, GemmPolicy, kernels):
     from repro_torch.models import Model
     from repro_torch.models.routing import RouteLog
     from repro_torch.serve import ServeEngine
+    from repro_torch.tree import tree_leaves
 
     emu = GemmPolicy(backend="ozaki2_f32", execution="kernel")
     fused = GemmPolicy(backend="ozaki2_f32", execution="fused")
@@ -2399,7 +2447,7 @@ def model_serving_blocks(rng, dev, GemmPolicy, kernels):
                                  f"expected {n_lin}")
         cut = "whole" if depth is None else f"cut to {depth} of {published} layers: {why}"
         print(f"  {arch}: {cfg.n_layers} layers ({cut}), d_model {cfg.d_model}, vocab {cfg.vocab}, "
-              f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B params, float32, init on the card in "
+              f"{sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f} B params, float32, init on the card in "
               f"{time.perf_counter() - t0:.2f} s ({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated); "
               f"{n_lin} emulated linears a forward call", flush=True)
         # layer 0's, and recurrentgemma's first attention layer (layer 2,
@@ -2477,22 +2525,6 @@ def model_serving_blocks(rng, dev, GemmPolicy, kernels):
     return phase
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
-
-
-def _map_tensors(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map_tensors(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_tensors(v, fn) for v in tree)
-    return fn(tree)
-
-
 def _take_layers(tree, n):
     if isinstance(tree, dict):
         return {k: _take_layers(v, n) for k, v in tree.items()}
@@ -2509,6 +2541,597 @@ def serve_cli():
         raise AssertionError(f"repro_torch.launch.serve exited {rc}")
     print(f"  python -m repro_torch.launch.serve --arch starcoder2-3b --backend ozaki2_f32 --execution kernel "
           f"--prepare: exit 0 in {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+# phase 9: training.  The train CLI's AdamW (lr 3e-3, grad clip 5.0).
+TRAIN_OPT = {"lr": 3e-3, "grad_clip": 5.0}
+TRAIN_REDUCED_B, TRAIN_REDUCED_S = 2, 32  # 9a: one SyntheticLM batch, seed 0
+# 9a: card against cpu, one step from the same weights.  The loss within
+# TRAIN_LOSS_TOL relative (recurrentgemma-2b 2e-3: its float32 RG-LRU gates
+# cancel near a = 1, SERVE_CARD_TOL_OF), and each grad leaf (read from the
+# first moment after the step, `step_grads`) within TRAIN_GRAD_TOL x its
+# max|g|: the native float32 layers round otherwise on the card (its expf,
+# rsqrtf, reductions and cuBLAS sums) and the backward carries that.
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_LOSS_TOL_OF = {"recurrentgemma-2b": 2e-3}
+TRAIN_GRAD_TOL = 1e-3
+# recurrentgemma-2b's grads within 1e-2: where its random-init RG-LRU gates
+# saturate, 1 - a^2 lies near float32's rounding and the derivative of
+# sqrt(max(1 - a^2, 1e-12)) amplifies the card's last-ulp differences
+# (measured 3.3e-3 on the H100; on the CPU the port against the reference
+# reads 2.3e-3)
+TRAIN_GRAD_TOL_OF = {"recurrentgemma-2b": 1e-2}
+TRAIN_COMPLEX_RTOL = 1e-3  # the reference's test_model_with_complex_policy_trains
+TRAIN_EXECUTIONS = ("kernel", "fused", "fp8", "per_modulus_kernel")  # 9a's deterministic grads
+# 9b: mamba2-130m as published, the train CLI's default batch and sequence
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_RESUME_AT = "mamba2-130m", 8, 256, 6, 2, 3
+TRAIN_LINEARS = 48  # in_proj and out_proj of 24 SSD layers
+TRAIN_ENGINE_RTOL = 1e-3  # 9b, 9c: step-0 loss (and grad_norm) emulated against native
+# 9c: starcoder2-3b at full width, cut to 2 of its 30 layers: the whole
+# model's params, grads, moments and master copy (20 B a float32 param)
+# would take ~61 GB before activations
+TRAIN_WIDE_ARCH, TRAIN_WIDE_LAYERS, TRAIN_WIDE_B, TRAIN_WIDE_S, TRAIN_WIDE_STEPS = "starcoder2-3b", 2, 4, 256, 2
+TRAIN_WIDE_LINEARS = 12  # q, k, v, o, up, down of 2 layers
+CLI_STEPS = (10, 12)  # 9d: the CLI's ckpt_every is max(10, steps // 4), so the first run saves step 10
+# the port's kernel functions, as a profiler names them
+PORT_KERNEL_FUNCTIONS = ("residue_cast_kernel", "mod_gemm_kernel", "crt_garner_kernel", "karatsuba_kernel",
+                         "launch_copy_kernel", "fa_f32_kernel", "fa_bf16_kernel")
+GEMMS_A_LINEAR = 4  # a train step's emulated GEMMs a linear: forward, its recompute (remat), dX, dW
+# 9c's linears: the CPU's plain versions of all three products of layer
+# 0's six linears at (4, 256, k) take ~2 minutes on 8 host cores, so the
+# CPU computes 8 of every 64 rows and columns of each output
+# (`train_linears`; rows alone took 77 s on an H100 machine's host, each
+# sub-product casting the whole weight)
+TRAIN_SAMPLE, TRAIN_SAMPLE_BLOCK = 8, 64
+
+
+@contextlib.contextmanager
+def deterministic():
+    """`torch.use_deterministic_algorithms(True)` for a block (the script
+    sets CUBLAS_WORKSPACE_CONFIG before CUDA starts); an op without a
+    deterministic version raises."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        if v:
+            total[k] = total.get(k, 0) + v
+
+
+def nonzero_counts(kernels):
+    return {k: v for k, v in kernels.launch_counts().items() if v}
+
+
+def train_expect(execution, n_mod=8):
+    """The launches of one real fast-mode GEMM on `execution`, by kernel."""
+    if execution == "per_modulus_kernel":
+        return {"residue_cast": 2, "int8_mod_gemm": n_mod, "crt_garner": 1}
+    return path_expect(execution, False)
+
+
+def check_train_launches(counts, expect, linears, steps, what):
+    """`counts` of `steps` train steps: `expect` a GEMM x GEMMS_A_LINEAR x
+    `linears`, by kernel."""
+    want = {k: v * GEMMS_A_LINEAR * linears * steps for k, v in expect.items()}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want} ({GEMMS_A_LINEAR} GEMMs a linear a "
+                             f"step x {linears} linears x {steps} steps)")
+
+
+def sampled_index(n):
+    """TRAIN_SAMPLE of every TRAIN_SAMPLE_BLOCK indices of n, at an offset
+    that steps by TRAIN_SAMPLE from block to block (0-7, 72-79, 144-151,
+    ...): every block of a 64-row or 64-column tile is read, and across
+    the blocks every offset within one."""
+    idx = torch.arange(n)
+    per = TRAIN_SAMPLE_BLOCK // TRAIN_SAMPLE
+    return idx[(idx % TRAIN_SAMPLE_BLOCK) // TRAIN_SAMPLE == (idx // TRAIN_SAMPLE_BLOCK) % per]
+
+
+def train_linears(rng, dev, linears, pol, b, s, what, sampled=False):
+    """Each linear of `linears` at the train shape (b, s, k) through
+    `apply_linear` under `pol`: the forward and both gradients (dX, dW,
+    for a cotangent drawn like x) on the card bitwise equal to
+    device="cpu".  With `sampled` the card computes every product whole
+    and the CPU only the `sampled_index` rows and columns of each output,
+    each by a product of those rows of its left operand and those
+    columns of its right one.  The emulation scales each row of its left
+    operand and each column of its right one over the contraction, which
+    these sub-products keep whole, so each equals its part of the whole
+    product bit for bit.  These launches compare the card with the plain
+    versions: not counted as the main path's."""
+    from repro_torch.models.layers import apply_linear
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    checked = 0
+    for name, p in linears.items():
+        k, n = p["w"].shape
+        x = torch.from_numpy(phi_matrix(rng, (b, s, k), PHI, np.float32))
+        g = torch.from_numpy(phi_matrix(rng, (b, s, n), PHI, np.float32))
+        w = p["w"].detach().to(cpu)
+        outs = []
+        for d in (dev, cpu):
+            xd = x.to(d).detach().requires_grad_(True)
+            wd = w.to(d).detach().requires_grad_(True)
+            y = apply_linear({"w": wd}, xd, pol)
+            dx, dw = torch.autograd.grad(y, (xd, wd), g.to(d))
+            if not all(t.device == xd.device for t in (y, dx, dw)):
+                raise AssertionError(f"{what} {name}: computed off {d}")
+            outs.append([t.detach().cpu() for t in (y, dx, dw)])
+            if sampled:
+                break
+        if sampled:
+            tok, kk, nn = sampled_index(b * s), sampled_index(k), sampled_index(n)
+            x2, g2 = x.reshape(b * s, k), g.reshape(b * s, n)
+            y, dx, dw = outs[0]
+            outs[0] = [y.reshape(b * s, n)[tok][:, nn], dx.reshape(b * s, k)[tok][:, kk], dw[kk][:, nn]]
+            ys = apply_linear({"w": w[:, nn]}, x2[tok], pol)  # x's sampled rows, w's sampled columns
+            xk = x2[tok][:, kk].requires_grad_(True)  # dX = g w^T: g's sampled rows, w's sampled rows
+            (dxs,) = torch.autograd.grad(apply_linear({"w": w[kk]}, xk, pol), xk, g2[tok])
+            wk = w[kk][:, nn].requires_grad_(True)  # dW = x^T g: x's sampled columns, g's sampled columns
+            (dws,) = torch.autograd.grad(apply_linear({"w": wk}, x2[:, kk], pol), wk, g2[:, nn])
+            outs.append([ys, dxs, dws])
+        for part, got, want in zip(("forward", "dX", "dW"), *outs):
+            checked += got.numel()
+            if not same_bits(got, want):
+                raise AssertionError(f"{what} {name} ({k}x{n}) at ({b}, {s}, {k}), {part}: the card differs from "
+                                     f"device='cpu': {first_difference(got, want)}")
+    part = (f", the CPU computing {TRAIN_SAMPLE} of every {TRAIN_SAMPLE_BLOCK} rows and columns of each output"
+            if sampled else "")
+    print(f"  {what}: {len(linears)} linears ({', '.join(linears)}) at the train shape ({b}, {s}, k): forward, "
+          f"dX and dW card == cpu, bitwise ({checked} values{part}), in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def forward_routes(routes, remat):
+    """A train step's routes of its forward alone: with remat each layer's
+    forward runs again in the backward and records its routes again."""
+    if not remat:
+        return routes
+    half = len(routes) // 2
+    if len(routes) != 2 * half:
+        raise AssertionError(f"{len(routes)} routed groups under remat: not the forward's twice")
+    return routes[:half]
+
+
+def hold_routes(what, card_routes, cpu_routes):
+    """A train step's routing on the card equal to the cpu's, token for
+    token.  Phases 7a and 8 set aside a token that flips near a tie; a
+    step's loss and grads sum over every token, so here any flip fails
+    (naming its gap to a tie)."""
+    from repro_torch.models.routing import differing
+
+    for c, mask in enumerate(differing(card_routes, cpu_routes)):
+        if bool(mask.any()):
+            gap = torch.minimum(card_routes[c].rel_gap, cpu_routes[c].rel_gap)[mask]
+            raise AssertionError(f"{what}: group {c}: {int(mask.sum())} tokens routed to other experts on the card "
+                                 f"than on the cpu (relative gaps to a tie {float(gap.min()):.3e} to "
+                                 f"{float(gap.max()):.3e}; phases 7a and 8 set aside those within {ROUTE_MARGIN})")
+
+
+def step_grads(state, met, opt):
+    """A train step's grads from its first moment after one step from
+    zeros, m = (1 - b1) clip g, with the step's own clip: a tree like m."""
+    from repro_torch.tree import tree_map
+
+    clip = min(1.0, opt.grad_clip / max(float(met["grad_norm"]), 1e-9))
+    return tree_map(lambda m: m.double() / ((1 - opt.b1) * clip), state["m"])
+
+
+def hold_grads(what, got, want, tol):
+    """Each grad leaf within tol x its max|g| (both trees of float64
+    tensors); returns the worst ratio.  A failure names every leaf over
+    the bound."""
+    from repro_torch.tree import tree_leaves
+
+    ratios = []
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = a.cpu(), b.cpu()
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{what}: non-finite grads in a leaf {tuple(a.shape)}")
+        scale = float(b.abs().max())
+        ratios.append((float((a - b).abs().max()) / scale if scale else 0.0, tuple(a.shape)))
+    over = [f"{shape} {r:.2e}" for r, shape in ratios if not r <= tol]
+    if over:
+        raise AssertionError(f"{what}: grad leaves over {tol} x max|g|: {', '.join(over)} (all: "
+                             f"{', '.join(f'{s} {r:.1e}' for r, s in ratios)})")
+    return max(r for r, _ in ratios)
+
+
+def training_reduced(rng, dev, GemmPolicy, kernels):
+    """Phase 9a: every arch reduced, float32, `ozaki2_f32` on `kernel`:
+    layer 0's linears at the train shape card == cpu bitwise; one
+    `make_train_step` step on the card and on the CPU from the same weights
+    (drawn on the CPU, moved) and the same `SyntheticLM` batch, the loss
+    and grads held (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL; MoE tokens routed
+    alike, `hold_routes`), the card's launches 16 a linear.  Then reduced
+    starcoder2-3b (1 layer) under `ozaki2_c64` on `kernel` (layer 0's
+    linears card == cpu bitwise, its loss within 1e-3 of native, grads
+    finite) and, under deterministic algorithms, its grads on the
+    four executions of TRAIN_EXECUTIONS, bitwise equal.  Returns the
+    main-path launches by kernel."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, get_reduced
+    from repro_torch.core.policy import NATIVE
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.models.routing import RouteLog
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import tree_leaves, tree_map
+
+    pol = GemmPolicy(backend="ozaki2_f32", execution="kernel")
+    opt = AdamWConfig(**TRAIN_OPT)
+    cpu = torch.device("cpu")
+    phase = {}
+    for arch in ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_reduced(arch, dtype="float32", gemm_policy=pol)
+        model = Model(cfg)
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        train_linears(rng, dev, model_linears(params, cfg), pol, TRAIN_REDUCED_B, TRAIN_REDUCED_S,
+                      f"{arch} reduced layer 0's")
+        n_lin = count_linears(params)
+        tokens = SyntheticLM(DataConfig(cfg.vocab, TRAIN_REDUCED_S, TRAIN_REDUCED_B, seed=0)).batch(0)["tokens"]
+        step = make_train_step(model, opt)[0]
+        runs = []
+        for d in (dev, cpu):
+            p = tree_map(lambda t, d=d: t.to(d, copy=True), params)  # the step updates it in place
+            state = adamw_init(p, opt)
+            log = RouteLog()
+            kernels.reset_launches()
+            with log:
+                _, state, met = step(p, state, {"tokens": torch.from_numpy(tokens).to(d)})
+            if d is dev:
+                card_counts = nonzero_counts(kernels)
+                check_train_launches(card_counts, train_expect("kernel"), n_lin, 1, f"{arch} reduced train step")
+                add_counts(phase, card_counts)
+                if met["loss"].device.type != dev.type:
+                    raise AssertionError(f"{arch}: the step did not run on the card")
+            runs.append((step_grads(state, met, opt), {k: float(v) for k, v in met.items()},
+                         forward_routes(log.routes, cfg.remat)))
+        (card_grads, card, card_routes), (cpu_grads, want, cpu_routes) = runs
+        hold_routes(arch, card_routes, cpu_routes)
+        tol = TRAIN_LOSS_TOL_OF.get(arch, TRAIN_LOSS_TOL)
+        rel = abs(card["loss"] - want["loss"]) / abs(want["loss"])
+        if not all(np.isfinite(v) for v in card.values()):
+            raise AssertionError(f"{arch}: non-finite metrics {card}")
+        if not rel <= tol:
+            raise AssertionError(f"{arch}: loss {card['loss']!r} on the card, {want['loss']!r} on the cpu: "
+                                 f"{rel:.3e} relative > {tol}")
+        grad_tol = TRAIN_GRAD_TOL_OF.get(arch, TRAIN_GRAD_TOL)
+        worst = hold_grads(arch, card_grads, cpu_grads, grad_tol)
+        routed = "" if not cpu_routes else f", all {TRAIN_REDUCED_B * TRAIN_REDUCED_S} tokens routed alike"
+        print(f"  {arch} reduced f32 kernel train step: loss {card['loss']:.6f} (cpu {want['loss']:.6f}, "
+              f"{rel:.2e} relative, bound {tol}), grad_norm {card['grad_norm']:.6f} (cpu "
+              f"{want['grad_norm']:.6f}), grads within {worst:.2e} x max|g| of the cpu's (bound "
+              f"{grad_tol}){routed}; {sum(card_counts.values())} launches ({n_lin} linears x 16) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # one complex-policy step: karatsuba_fused through the linears
+    t0 = time.perf_counter()
+    cpol = GemmPolicy(backend="ozaki2_c64", execution="kernel")
+    cfg = get_reduced("starcoder2-3b", dtype="float32", n_layers=1, gemm_policy=cpol)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device=dev)
+    train_linears(rng, dev, model_linears(params, cfg), cpol, TRAIN_REDUCED_B, TRAIN_REDUCED_S,
+                  "starcoder2-3b reduced (1 layer) ozaki2_c64 layer 0's")
+    tokens = torch.from_numpy(SyntheticLM(DataConfig(cfg.vocab, TRAIN_REDUCED_S, TRAIN_REDUCED_B)).batch(0)["tokens"])
+    with torch.no_grad():
+        native, _ = Model(dataclasses.replace(cfg, gemm_policy=NATIVE)).loss(params, {"tokens": tokens.to(dev)})
+    state = adamw_init(params, opt)
+    kernels.reset_launches()
+    params, state, met = make_train_step(model, opt)[0](params, state, {"tokens": tokens.to(dev)})
+    counts = nonzero_counts(kernels)
+    n_lin = count_linears(params)
+    check_train_launches(counts, path_expect("kernel", True), n_lin, 1, "starcoder2-3b ozaki2_c64 train step")
+    add_counts(phase, counts)
+    rel = abs(float(met["loss"]) - float(native)) / abs(float(native))
+    if not rel <= TRAIN_COMPLEX_RTOL:
+        raise AssertionError(f"ozaki2_c64: loss {float(met['loss'])!r} against native {float(native)!r}: "
+                             f"{rel:.3e} relative > {TRAIN_COMPLEX_RTOL}")
+    if not all(bool(torch.isfinite(t).all()) for t in tree_leaves((params, state))):
+        raise AssertionError("ozaki2_c64: non-finite params or grads after the step")
+    print(f"  starcoder2-3b reduced (1 layer) ozaki2_c64 kernel train step: loss {float(met['loss']):.6f} against "
+          f"native {float(native):.6f} ({rel:.2e} relative, bound {TRAIN_COMPLEX_RTOL}), grads finite; launches "
+          f"{counts} in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the four executions' grads, bitwise equal under deterministic algorithms
+    t0 = time.perf_counter()
+    cfg = get_reduced("starcoder2-3b", dtype="float32")
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device=dev)
+    n_lin = count_linears(params)
+    batch = {"tokens": tokens.to(dev)}
+    grads = {}
+    with deterministic():
+        for execution in TRAIN_EXECUTIONS:
+            epol = GemmPolicy(backend="ozaki2_f32", execution=execution)
+            kernels.reset_launches()
+            loss, _, g = loss_and_grads(Model(dataclasses.replace(cfg, gemm_policy=epol)), params, batch)
+            counts = nonzero_counts(kernels)
+            check_train_launches(counts, train_expect(execution), n_lin, 1, f"starcoder2-3b reduced {execution} grads")
+            add_counts(phase, counts)
+            grads[execution] = (loss, tree_leaves(g), sum(counts.values()))
+    first, (loss0, g0, _) = TRAIN_EXECUTIONS[0], grads[TRAIN_EXECUTIONS[0]]
+    for execution, (loss, g, _) in grads.items():
+        if not same_bits(loss, loss0) or not all(same_bits(a, b) for a, b in zip(g, g0)):
+            bad = next(i for i, (a, b) in enumerate(zip(g, g0)) if not same_bits(a, b))
+            raise AssertionError(f"starcoder2-3b reduced grads on {execution} differ from {first}'s: leaf {bad}: "
+                                 f"{first_difference(g[bad].cpu(), g0[bad].cpu())}")
+    print(f"  starcoder2-3b reduced grads under deterministic algorithms on {', '.join(TRAIN_EXECUTIONS)}: bitwise "
+          f"equal ({len(g0)} leaves; launches {', '.join(f'{e} {c}' for e, (_, _, c) in grads.items())}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return phase
+
+
+def timed_train(model, data_cfg, steps, warmup, kernels, what):
+    """`train_loop` on the card for `steps` steps (log every step), the
+    launch counters zeroed just before and read just after.  Each step's
+    time runs from the batch hook (after a synchronize, with the step's
+    batch on the card) to its log line (after the loss was read, which
+    waits for the card).  Returns (losses, step ms, peak GiB since the
+    state's construction, launches)."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainLoopConfig, train_loop
+
+    begins, ends = [], []
+
+    def hook(batch):
+        torch.cuda.synchronize()
+        begins.append(time.perf_counter())
+        return batch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    _, hist = train_loop(model, data_cfg, TrainLoopConfig(steps=steps, warmup=warmup, log_every=1, ckpt_every=10**6),
+                         AdamWConfig(**TRAIN_OPT), batch_hook=hook, log=lambda _: ends.append(time.perf_counter()))
+    counts = nonzero_counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if len(hist) != steps or not all(np.isfinite(hist)):
+        raise AssertionError(f"{what}: losses {hist}")
+    return hist, [(e - b) * 1e3 for b, e in zip(begins, ends)], peak, counts
+
+
+def report_train(what, hist, ms, peak, counts, tokens, steps):
+    timed = ms[1:]
+    step_ms = statistics.median(timed)
+    a_step = {k: v // steps for k, v in counts.items()}
+    print(f"  {what}: losses {' '.join(f'{x:.4f}' for x in hist)}; step_ms={step_ms:.1f} (median of steps "
+          f"2-{steps}: {' '.join(f'{x:.1f}' for x in timed)}; step 1 {ms[0]:.1f}) tokens/s={tokens / step_ms * 1e3:.0f} "
+          f"peak_GB={peak:.2f} launches a step {sum(a_step.values())} {a_step}", flush=True)
+    return step_ms
+
+
+def training_full(rng, dev, GemmPolicy, kernels):
+    """Phase 9b: mamba2-130m as published (24 layers, d_model 768, vocab
+    50280), float32, remat on, B = 8 x S = 256: layer 0's linears at the
+    train shape card == cpu; one step on each engine from the same
+    card-drawn weights (step-0 loss and grad_norm, emulated against native,
+    within TRAIN_ENGINE_RTOL); 6 steps of `train_loop` on native and
+    `kernel`, timed (launches 16 a linear a step); the resume (deterministic
+    algorithms): 3 steps, a blocking save, a restore bitwise equal to the
+    live state and the next step's loss and state equal from both.
+    Returns the main-path launches by kernel."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import NATIVE
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, cosine_warmup
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import init_state
+    from repro_torch.tree import tree_leaves
+
+    emu = GemmPolicy(backend="ozaki2_f32", execution="kernel")
+    cfg = get_config(TRAIN_ARCH, dtype="float32")
+    opt = AdamWConfig(**TRAIN_OPT)
+    data = DataConfig(cfg.vocab, TRAIN_S, TRAIN_B, seed=0)
+    src = SyntheticLM(data)
+    batch = lambda i: {k: torch.from_numpy(v).to(dev) for k, v in src.batch(i).items()}  # noqa: E731
+    schedule = cosine_warmup(TRAIN_WARMUP, TRAIN_STEPS)
+    models = {"native": Model(dataclasses.replace(cfg, gemm_policy=NATIVE)),
+              "kernel": Model(dataclasses.replace(cfg, gemm_policy=emu))}
+    phase = {}
+
+    params, _ = init_state(models["kernel"], opt, torch.Generator().manual_seed(0), dev)
+    if count_linears(params) != TRAIN_LINEARS:
+        raise AssertionError(f"{TRAIN_ARCH}: {count_linears(params)} emulated linears, expected {TRAIN_LINEARS}")
+    print(f"  {TRAIN_ARCH} as published: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab}, "
+          f"{sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f} B params, float32, remat {cfg.remat}, "
+          f"B={TRAIN_B} x S={TRAIN_S}, {TRAIN_LINEARS} emulated linears", flush=True)
+    train_linears(rng, dev, layer_linears(params["groups"][0], 0), emu, TRAIN_B, TRAIN_S,
+                  f"{TRAIN_ARCH} layer 0's")
+    del params
+
+    # step 0 on each engine, from the same card-drawn weights
+    first = {}
+    for name, model in models.items():
+        params, state = init_state(model, opt, torch.Generator().manual_seed(0), dev)
+        kernels.reset_launches()
+        _, _, met = make_train_step(model, opt, schedule)[0](params, state, batch(0))
+        counts = nonzero_counts(kernels)
+        if name == "kernel":
+            check_train_launches(counts, train_expect("kernel"), TRAIN_LINEARS, 1, f"{TRAIN_ARCH} kernel step 0")
+            add_counts(phase, counts)
+        elif counts:
+            raise AssertionError(f"{TRAIN_ARCH} native: launched {counts}")
+        first[name] = {k: float(v) for k, v in met.items()}
+        del params, state
+    for key in ("loss", "grad_norm"):
+        got, want = first["kernel"][key], first["native"][key]
+        if not abs(got - want) <= TRAIN_ENGINE_RTOL * abs(want):
+            raise AssertionError(f"{TRAIN_ARCH} step 0 {key}: kernel {got!r} against native {want!r}")
+    print(f"  {TRAIN_ARCH} step 0: loss kernel {first['kernel']['loss']:.6f} native {first['native']['loss']:.6f}, "
+          f"grad_norm kernel {first['kernel']['grad_norm']:.6f} native {first['native']['grad_norm']:.6f} (within "
+          f"{TRAIN_ENGINE_RTOL} relative)", flush=True)
+
+    # 6 steps of train_loop on each engine, timed
+    times = {}
+    for name, model in models.items():
+        hist, ms, peak, counts = timed_train(model, data, TRAIN_STEPS, TRAIN_WARMUP, kernels, f"{TRAIN_ARCH} {name}")
+        if name == "kernel":
+            check_train_launches(counts, train_expect("kernel"), TRAIN_LINEARS, TRAIN_STEPS, f"{TRAIN_ARCH} kernel")
+            add_counts(phase, counts)
+        elif counts:
+            raise AssertionError(f"{TRAIN_ARCH} native: launched {counts}")
+        times[name] = report_train(f"{TRAIN_ARCH} {name} train_loop", hist, ms, peak, counts, TRAIN_B * TRAIN_S,
+                                   TRAIN_STEPS)
+    print(f"  {TRAIN_ARCH}: the emulated step takes {times['kernel'] / times['native']:.2f}x native", flush=True)
+
+    # one step of each engine under torch.profiler: the device's busy share
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, model in models.items():
+        step = make_train_step(model, opt, schedule)[0]
+        params, state = init_state(model, opt, torch.Generator().manual_seed(0), dev)
+        params, state, _ = step(params, state, batch(0))  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            params, state, _ = step(params, state, batch(1))
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        device_ms = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA) / 1e3
+        kernels_ms = sum(e.self_device_time_total for e in events
+                         if e.device_type == DeviceType.CUDA and any(k in e.key for k in PORT_KERNEL_FUNCTIONS)) / 1e3
+        print(f"  {TRAIN_ARCH} {name} step under torch.profiler: {device_ms:.1f} ms of device time ({kernels_ms:.1f} ms "
+              f"in the port's kernels), {device_ms / times[name] * 100:.1f} % of the unprofiled step's "
+              f"{times[name]:.1f} ms", flush=True)
+        del params, state
+
+    # resume, under deterministic algorithms
+    t0 = time.perf_counter()
+    model = models["kernel"]
+    step = make_train_step(model, opt, schedule)[0]
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        with deterministic():
+            kernels.reset_launches()
+            params, state = init_state(model, opt, torch.Generator().manual_seed(0), dev)
+            for i in range(TRAIN_RESUME_AT):
+                params, state, _ = step(params, state, batch(i))
+            live = {"params": params, "opt": state}
+            Checkpointer(ckdir).save(TRAIN_RESUME_AT, live, blocking=True)
+            restored = Checkpointer(ckdir).restore(TRAIN_RESUME_AT, live, dev)
+            pairs = list(zip(tree_leaves(live), tree_leaves(restored)))
+            for a, b in pairs:
+                if b.device.type != dev.type or not same_bits(a, b):
+                    raise AssertionError(f"{TRAIN_ARCH} resume: a restored leaf {tuple(a.shape)} differs from the "
+                                         f"saved one")
+            _, r_state, r_met = step(restored["params"], restored["opt"], batch(TRAIN_RESUME_AT))
+            _, l_state, l_met = step(params, state, batch(TRAIN_RESUME_AT))
+            counts = nonzero_counts(kernels)
+        check_train_launches(counts, train_expect("kernel"), TRAIN_LINEARS, TRAIN_RESUME_AT + 2,
+                             f"{TRAIN_ARCH} resume steps")
+        add_counts(phase, counts)
+        if not same_bits(r_met["loss"], l_met["loss"]) or not all(
+                same_bits(a, b) for a, b in zip(tree_leaves(r_state), tree_leaves(l_state))):
+            raise AssertionError(f"{TRAIN_ARCH} resume: step {TRAIN_RESUME_AT} from the restored state gave loss "
+                                 f"{float(r_met['loss'])!r}, from the live state {float(l_met['loss'])!r}")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    print(f"  {TRAIN_ARCH} kernel resume (deterministic algorithms): saved at step {TRAIN_RESUME_AT} (blocking), "
+          f"{len(pairs)} restored leaves bitwise the saved ones; step {TRAIN_RESUME_AT} from the restored state: "
+          f"loss {float(r_met['loss']):.6f}, bitwise the live state's, and so is every leaf of the next state, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return phase
+
+
+def training_wide(rng, dev, GemmPolicy, kernels):
+    """Phase 9c: starcoder2-3b at full width (d_model 3072, d_ff 12288,
+    vocab 49152), 2 of its 30 layers, float32, B = 4 x S = 256, on native
+    and `kernel`: layer 0's linears at the train shape card == cpu
+    (sampled rows and columns); 2 steps of `train_loop` each from the same card-drawn
+    weights, the step-0 losses within TRAIN_ENGINE_RTOL.  Returns the
+    main-path launches by kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import NATIVE
+    from repro_torch.data import DataConfig
+    from repro_torch.models import Model
+
+    published = get_config(TRAIN_WIDE_ARCH)
+    cfg = dataclasses.replace(published, dtype="float32", n_layers=TRAIN_WIDE_LAYERS)
+    data = DataConfig(cfg.vocab, TRAIN_WIDE_S, TRAIN_WIDE_B, seed=0)
+    print(f"  {TRAIN_WIDE_ARCH}: {TRAIN_WIDE_LAYERS} of {published.n_layers} layers (its params, grads, moments and "
+          f"master copy at 30 layers would take ~61 GB before activations), d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, float32, B={TRAIN_WIDE_B} x S={TRAIN_WIDE_S}", flush=True)
+    emu = GemmPolicy(backend="ozaki2_f32", execution="kernel")
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device=dev)
+    train_linears(rng, dev, layer_linears(params["groups"][0], 0), emu, TRAIN_WIDE_B, TRAIN_WIDE_S,
+                  f"{TRAIN_WIDE_ARCH} layer 0's", sampled=True)
+    del params
+    phase, losses = {}, {}
+    for name, pol in (("native", NATIVE), ("kernel", emu)):
+        model = Model(dataclasses.replace(cfg, gemm_policy=pol))
+        hist, ms, peak, counts = timed_train(model, data, TRAIN_WIDE_STEPS, TRAIN_WIDE_STEPS, kernels,
+                                             f"{TRAIN_WIDE_ARCH} {name}")
+        if name == "kernel":
+            check_train_launches(counts, train_expect("kernel"), TRAIN_WIDE_LINEARS, TRAIN_WIDE_STEPS,
+                                 f"{TRAIN_WIDE_ARCH} kernel")
+            add_counts(phase, counts)
+        elif counts:
+            raise AssertionError(f"{TRAIN_WIDE_ARCH} native: launched {counts}")
+        report_train(f"{TRAIN_WIDE_ARCH} ({TRAIN_WIDE_LAYERS} layers) {name} train_loop", hist, ms, peak, counts,
+                     TRAIN_WIDE_B * TRAIN_WIDE_S, TRAIN_WIDE_STEPS)
+        losses[name] = hist[0]
+    rel = abs(losses["kernel"] - losses["native"]) / abs(losses["native"])
+    if not rel <= TRAIN_ENGINE_RTOL:
+        raise AssertionError(f"{TRAIN_WIDE_ARCH} step 0 loss: kernel {losses['kernel']!r} against native "
+                             f"{losses['native']!r}: {rel:.3e} relative > {TRAIN_ENGINE_RTOL}")
+    print(f"  {TRAIN_WIDE_ARCH} step 0 loss: kernel {losses['kernel']:.6f} native {losses['native']:.6f} ({rel:.2e} "
+          f"relative, bound {TRAIN_ENGINE_RTOL})", flush=True)
+    return phase
+
+
+def train_cli():
+    """Phase 9d: the train CLI in subprocesses on the card: 10 steps into a
+    checkpoint directory (its ckpt_every, max(10, steps // 4), saves step
+    10), then 12 on the same one, which must resume at step 10 and run
+    exactly steps 10 and 11."""
+    import os
+    import shutil
+
+    root = pathlib.Path(__file__).resolve().parent
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "mamba2-130m", "--backend", "ozaki2_f32",
+            "--execution", "kernel", "--batch", "2", "--seq", "32", "--ckpt-dir", ckdir]
+    t0 = time.perf_counter()
+    try:
+        outs = []
+        for steps in CLI_STEPS:
+            r = subprocess.run(base + ["--steps", str(steps)], capture_output=True, text=True, env=env, timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"train CLI --steps {steps} exited {r.returncode}:\n{r.stdout}\n{r.stderr}")
+            outs.append(r.stdout.splitlines())
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    steps = [[line.split() for line in out if line.startswith("step ")] for out in outs]
+    first, then = CLI_STEPS
+    want = [[str(i) for i in range(first)], [str(i) for i in range(first, then)]]
+    if ([[s[1] for s in run] for run in steps] != want
+            or outs[1][0] != f"[resume] restored step {first} from {ckdir}"
+            or not all(np.isfinite(float(s[3])) and np.isfinite(float(s[5])) for run in steps for s in run)):
+        raise AssertionError(f"train CLI: the runs printed {outs}")
+    print(f"  python -m repro_torch.launch.train --arch mamba2-130m --backend ozaki2_f32 --execution kernel --steps "
+          f"{first} --batch 2 --seq 32 --ckpt-dir DIR, then --steps {then}: exit 0 twice, '{outs[1][0]}', steps "
+          f"{first}-{then - 1} only; "
+          f"{outs[0][-1]} / {outs[1][-1]} in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -2639,6 +3262,21 @@ def main() -> int:
     blocks_counts = model_serving_blocks(rng, dev, GemmPolicy, kernels)
     print(f"  phase 8 launches: {blocks_counts}", flush=True)
     print(f"  phase 8 took {time.perf_counter() - t8:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t9 = time.perf_counter()
+    print("phase 9a: training, reduced configs, card vs cpu", flush=True)
+    train_counts = training_reduced(rng, dev, GemmPolicy, kernels)
+    print(f"  phase 9a took {time.perf_counter() - t9:.1f} s", flush=True)
+    print(f"phase 9b: training {TRAIN_ARCH} as published", flush=True)
+    add_counts(train_counts, training_full(rng, dev, GemmPolicy, kernels))
+    torch.cuda.empty_cache()
+    print(f"phase 9c: training {TRAIN_WIDE_ARCH} at full width", flush=True)
+    add_counts(train_counts, training_wide(rng, dev, GemmPolicy, kernels))
+    torch.cuda.empty_cache()
+    print("phase 9d: train CLI", flush=True)
+    train_cli()
+    print(f"  phase 9 launches: {train_counts}", flush=True)
+    print(f"  phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
 
     launches = {"kernel": counts, "fused": fused_counts, "fp8": fp8_counts, "tune": tune_counts,
                 "attention": attention_counts}
@@ -2653,6 +3291,7 @@ def main() -> int:
             "launches": launches[PATH_OF[name]][name],
             "serve_launches": serve_counts.get(name, 0),
             "blocks_serve_launches": blocks_counts.get(name, 0),
+            "train_launches": train_counts.get(name, 0),
             "tma_launches": tma.get(name),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..core.executor import PreparedOperand, resolve_device
+from ..tree import leaves_with_paths, tree_map, unflatten
 
 #: the dtypes numpy cannot hold, stored as raw bits of this width
 _BITS = {
@@ -71,33 +72,27 @@ def _prepared_decode(like: PreparedOperand, enc: dict) -> PreparedOperand:
     return p
 
 
-def _flatten(tree, prefix=""):
-    if isinstance(tree, PreparedOperand):
-        yield from _flatten(_prepared_encode(tree), prefix)
-    elif isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _flatten(tree[k], f"{prefix}{k}/")
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _flatten(v, f"{prefix}{i}/")
-    else:
-        yield prefix[:-1], tree
+def _encoded(tree):
+    """`tree` with each PreparedOperand replaced by its fields' dict."""
+    return tree_map(lambda x: _prepared_encode(x) if isinstance(x, PreparedOperand) else x, tree)
 
 
-def _unflatten_into(like, flat, prefix=""):
-    if isinstance(like, PreparedOperand):
-        return _prepared_decode(like, _unflatten_into(_prepared_encode(like), flat, prefix))
-    if isinstance(like, dict):
-        return {k: _unflatten_into(like[k], flat, f"{prefix}{k}/") for k in like}
-    if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten_into(v, flat, f"{prefix}{i}/") for i, v in enumerate(like))
-    return flat[prefix[:-1]]
+def _flatten(tree):
+    """(key, leaf) in `repro_torch.tree`'s order, the key the leaf's path
+    joined by "/"."""
+    for path, leaf in leaves_with_paths(_encoded(tree)):
+        yield "/".join(map(str, path)), leaf
+
+
+def _unflatten_into(like, flat):
+    enc = unflatten(_encoded(like), [flat[k] for k, _ in _flatten(like)])
+    return tree_map(lambda l, e: _prepared_decode(l, e) if isinstance(l, PreparedOperand) else e, like, enc)
 
 
 def _to_host(v) -> tuple[np.ndarray, str | None]:
     """(numpy array, dtype name stored in the metadata or None)."""
     if isinstance(v, torch.Tensor):
-        t = v.detach().cpu()
+        t = v.detach().to("cpu", copy=True)  # a CPU tensor's own copy too: the caller may update it in place
         if t.dtype in _BITS:
             return t.view(_BITS[t.dtype][0]).numpy().view(_BITS[t.dtype][1]), str(t.dtype).removeprefix("torch.")
         return t.numpy(), None

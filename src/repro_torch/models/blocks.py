@@ -36,6 +36,7 @@ from .layers import (
     attention,
     gelu,
     linear_abstract,
+    logistic,
     mlp_abstract,
     silu,
 )
@@ -51,11 +52,6 @@ def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
     float64); operands of one type pass unchanged."""
     dt = functools.reduce(torch.promote_types, (o.dtype for o in ops))
     return torch.einsum(eq, *(o.to(dt) for o in ops))
-
-
-def _sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """`jax.nn.sigmoid` (`lax.logistic`): 1 / (1 + exp(-x))."""
-    return 1.0 / (1.0 + torch.exp(-x))
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -345,8 +341,8 @@ _LRU_C = 8.0
 
 
 def _rglru_gates(cfg, p, xc):
-    r = _sigmoid(apply_linear(p["w_a"], xc, cfg.gemm_policy).to(_F32))
-    i = _sigmoid(apply_linear(p["w_x"], xc, cfg.gemm_policy).to(_F32))
+    r = logistic(apply_linear(p["w_a"], xc, cfg.gemm_policy).to(_F32))
+    i = logistic(apply_linear(p["w_x"], xc, cfg.gemm_policy).to(_F32))
     # log a_t = -c * r_t * softplus(lam)  (a = sigmoid(lam)^(c r) in griffin)
     log_a = -_LRU_C * r * _softplus(p["lam"])
     a = torch.exp(log_a)

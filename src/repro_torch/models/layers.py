@@ -192,9 +192,32 @@ def _in_dtype(value: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
+class _Logistic(torch.autograd.Function):
+    """`lax.logistic`: 1 / (1 + exp(-x)) op by op in x's dtype, with JAX's
+    derivative, g * (s * (1 - s)).  Autograd through the quotient would
+    multiply a zero by exp(-x) = inf where x is very negative, which is
+    NaN; JAX's rule stays finite there."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1.0 - s))
+
+
+def logistic(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.sigmoid` (`lax.logistic`), differentiable as JAX's."""
+    return _Logistic.apply(x)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """`jax.nn.silu`: x * logistic(x), op by op in x's dtype."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    return x * logistic(x)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

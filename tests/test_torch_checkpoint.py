@@ -78,6 +78,33 @@ def test_async_save(tmp_path, rng):
     assert torch.equal(out["a"], tree["a"])
 
 
+def test_async_save_snapshots_cpu_tensors(tmp_path, rng, monkeypatch):
+    """An asynchronous save holds the values the tree had when `save` was
+    called, also for CPU tensors that the caller then updates in place
+    (the train step's donated update does): the write is delayed past
+    the update."""
+    import time
+
+    import repro_torch.checkpoint.checkpointer as checkpointer
+
+    real = np.savez
+
+    def slow_savez(*args, **kwargs):
+        time.sleep(0.2)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(checkpointer.np, "savez", slow_savez)
+    ck = Checkpointer(str(tmp_path))
+    tree = _tree(rng)
+    want = [t.clone() for t in _leaves(tree)]
+    ck.save(5, tree, blocking=False)
+    for t in _leaves(tree):
+        t.add_(1)
+    ck.wait()
+    for a, b in zip(want, _leaves(ck.restore(5, tree, device="cpu"))):
+        assert _same_bits(a, b)
+
+
 def test_no_tmp_left_behind(tmp_path, rng):
     ck = Checkpointer(str(tmp_path))
     ck.save(1, _tree(rng))

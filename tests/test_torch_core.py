@@ -191,7 +191,8 @@ def test_port_imports_no_jax():
     """In a fresh interpreter: importing the port pulls in no JAX (the test
     process itself has JAX loaded by conftest, hence the subprocess)."""
     code = (
-        "import repro_torch, repro_torch.kernels.ops, repro_torch.interop, sys; "
+        "import repro_torch, repro_torch.kernels.ops, repro_torch.interop, repro_torch.optim, "
+        "repro_torch.data, repro_torch.train, repro_torch.tree, repro_torch.distributed, repro_torch.launch.train, sys; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert 'repro' not in sys.modules, 'repro imported'"
     )
