@@ -296,15 +296,44 @@ failure is caught.
        both exit 0, the second resumes at step 10 and runs steps 10 and
        11, every loss finite.
 
+10. The sharded execution (`GemmPolicy(execution="sharded")`), its ranks
+    subprocesses of this script on the one card (`--rank-task`, the
+    launcher's environment variables; `launch.mesh.init_world` picks the
+    transport: NCCL for a world of 1, gloo for 2 and 4 ranks sharing the
+    card), each rank's outputs held with `same_bits` against this
+    process's single-process `kernel` outputs, saved to a temporary
+    directory; a rank that fails or outlives RANK_TIMEOUT fails the run:
+    (a) s/d/c/zgemm at 2048^3 (N = 8, 16, 7, 14) on (1,1,1) (1 rank,
+        NCCL), (1,1,2), (2,1,1), (1,2,1), (1,1,4) and (2,2,1) (mesh dims
+        data, model, residue), `fused` sgemm on (2,1,1) and zgemm on
+        (1,2,1) (the megakernel on each rank's block), sgemm and zgemm at
+        4096^3 on (1,1,2) and zgemm accu on (2,1,2): a warm-up call, then
+        each timed (host clock around a synchronize) beside this process's
+        `kernel` time, with its bytes all-reduced and its collectives'
+        share of the time (`sharded_gemm.collective`, timed);
+    (b) starcoder2-3b at full width, cut to SHARD_SERVE_LAYERS = 2 of its
+        30 layers (float32, weights from seed 0), B = 4, 128-token prompts,
+        16 new tokens, served by the world of 2 on (1,1,2): tokens and
+        logits bitwise this process's `kernel` engine's; prefill ms and
+        decode ms a token on both;
+    (c) the serve and train CLIs under `python -m torch.distributed.run
+        --standalone --nproc-per-node 2 ... --execution sharded --residue
+        2` (starcoder2-3b reduced; mamba2-130m reduced, 3 steps, under
+        deterministic algorithms): each rank's tokens and every step's
+        loss equal to the same CLI's on `--execution kernel` here, rank 0
+        alone printing.
+
 The last lines are the kernels' JSON record (with each kernel's launches
-in phase 7b, `serve_launches`, in phase 8, `blocks_serve_launches`, and in
-phase 9, `train_launches`: 9a's card steps, 9b's and 9c's steps),
+in phase 7b, `serve_launches`, in phase 8, `blocks_serve_launches`, in
+phase 9, `train_launches`: 9a's card steps, 9b's and 9c's steps, and in
+phase 10 on rank 0, `sharded_launches`),
 the card's name and power limit from nvidia-smi, and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import pathlib
@@ -3134,7 +3163,354 @@ def train_cli():
           f"{outs[0][-1]} / {outs[1][-1]} in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# phase 10: the sharded execution, its ranks subprocesses of this script on
+# the one card (RANK_TIMEOUT s a world at most).  NCCL refuses two ranks on
+# one card, so a world of 1 runs over NCCL and worlds of 2 and 4 over gloo
+# (`launch.mesh.init_world` chooses).  Each case: (routine, m = n = k, mode,
+# execution, mesh (data, model, residue)); N is the routine's default.
+SHARD_CASES = (
+    [(r, 2048, "fast", "sharded", (1, 1, 1)) for r in ROUTINES]
+    + [(r, 2048, "fast", "sharded", mesh) for mesh in ((1, 1, 2), (2, 1, 1), (1, 2, 1), (1, 1, 4), (2, 2, 1))
+       for r in ROUTINES]
+    + [("sgemm", 2048, "fast", "fused", (2, 1, 1)), ("zgemm", 2048, "fast", "fused", (1, 2, 1))]
+    + [("sgemm", 4096, "fast", "sharded", (1, 1, 2)), ("zgemm", 4096, "fast", "sharded", (1, 1, 2)),
+       ("zgemm", 4096, "accu", "sharded", (2, 1, 2))]
+)
+SHARD_NAMES = ("data", "model", "residue")
+SHARD_SERVE_LAYERS = 2  # 10b: starcoder2-3b at full width, 2 of its 30 layers, on (1, 1, 2)
+SHARD_SERVE_WORLD = 2  # 10b runs in 10a's world of 2, after its GEMMs
+SHARD_SERVE_CLI = ["--arch", "starcoder2-3b", "--backend", "ozaki2_f32", "--batch", "2", "--prompt-len", "16",
+                   "--new-tokens", "4"]
+SHARD_TRAIN_CLI = ["--arch", "mamba2-130m", "--backend", "ozaki2_f32", "--steps", "3", "--batch", "2",
+                   "--seq", "32"]
+RANK_TIMEOUT = 300
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def card_operands(routine, size, dev):
+    """phi-generator operands (m = n = k = size) drawn on `dev` from a
+    generator seeded by the case: the same tensors in every process."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + size + list(ROUTINES).index(routine))
+
+    def phi(shape):
+        u = torch.rand(shape, dtype=torch.float64, device=dev, generator=gen) - 0.5
+        return u * torch.exp(torch.randn(shape, dtype=torch.float64, device=dev, generator=gen) * PHI)
+
+    dtype = {np.float32: torch.float32, np.float64: torch.float64, np.complex64: torch.complex64,
+             np.complex128: torch.complex128}[ROUTINES[routine]]
+    if dtype.is_complex:
+        return [torch.complex(phi((size, size)), phi((size, size))).to(dtype) for _ in range(2)]
+    return [phi((size, size)).to(dtype) for _ in range(2)]
+
+
+def shard_policy(GemmPolicy, routine, mode, execution, mesh=None):
+    backend = {"sgemm": "ozaki2_f32", "dgemm": "ozaki2_f64", "cgemm": "ozaki2_c64", "zgemm": "ozaki2_c128"}[routine]
+    return GemmPolicy(backend=backend, mode=mode, execution=execution, mesh=mesh)
+
+
+def shard_serve_model(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import prompt_batch
+
+    cfg = dataclasses.replace(get_config("starcoder2-3b", dtype="float32"), n_layers=SHARD_SERVE_LAYERS)
+    return cfg, prompt_batch(cfg, SERVE_B, SERVE_PROMPT, np.random.default_rng(SEED), dev)
+
+
+def timed_generate(eng, batch, dev):
+    """A warm-up token, then the whole generate with the prefill's end
+    marked: (tokens, logits, prefill ms, decode ms a token)."""
+    eng.generate(batch, 1)
+    marks, prefill = [], eng.model.prefill
+
+    def marked(*args, **kwargs):
+        out = prefill(*args, **kwargs)
+        _sync(dev)
+        marks.append(time.perf_counter())
+        return out
+
+    eng.model.prefill = marked
+    try:
+        _sync(dev)
+        t0 = time.perf_counter()
+        tok, logits = eng.generate(batch, SERVE_NEW, return_logits=True)
+        _sync(dev)
+        t1 = time.perf_counter()
+    finally:
+        del eng.model.prefill
+    return tok, logits, (marks[0] - t0) * 1e3, (t1 - marks[0]) * 1e3 / SERVE_NEW
+
+
+def run_ranks(tasks, world, tmp, dev):
+    """`world` ranks of this script, each running `tasks` in turn, joined by
+    the launcher's environment variables (rank 0's address on this host);
+    the results by task and rank.  A rank that fails or outlives
+    RANK_TIMEOUT fails the phase."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen([sys.executable, __file__, "--rank-task", ",".join(tasks), str(tmp), dev.type],
+                                      env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    deadline = time.monotonic() + RANK_TIMEOUT
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{tasks}: rank {rank} of {world} exited {p.returncode}:\n{out[-6000:]}")
+    return {task: [json.loads((tmp / f"{task}.rank{rank}.json").read_text()) for rank in range(world)]
+            for task in tasks}
+
+
+def sharded_phase(dev, GemmPolicy, linalg, tmp):
+    """Phases 10a and 10b.  Here, on one process: each GEMM case's `kernel`
+    output (saved, and timed) and starcoder2-3b's kernel engine (its
+    tokens and logits saved, timed).  Then each world's ranks run their
+    cases sharded (the world of 2 also serves the model on (1, 1, 2)),
+    holding every rank's outputs against these with `same_bits`.  Returns
+    rank 0's launches."""
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeEngine
+
+    kernel_ms = {}
+    for routine, size, mode, _, _ in SHARD_CASES:
+        if (routine, size, mode) not in kernel_ms:
+            a, b = card_operands(routine, size, dev)
+            pol = shard_policy(GemmPolicy, routine, mode, "kernel")
+            linalg.matmul(a, b, policy=pol, device=dev)
+            _sync(dev)
+            t = time.perf_counter()
+            y = linalg.matmul(a, b, policy=pol, device=dev)
+            _sync(dev)
+            kernel_ms[routine, size, mode] = (time.perf_counter() - t) * 1e3
+            torch.save(y.cpu(), tmp / f"want_{routine}_{size}_{mode}.pt")
+            del a, b, y
+    cfg, batch = shard_serve_model(dev)
+    eng = ServeEngine(Model(dataclasses.replace(cfg, gemm_policy=GemmPolicy(backend="ozaki2_f32",
+                                                                              execution="kernel"))),
+                      Model(cfg).init(torch.Generator().manual_seed(0), device=dev), SERVE_PROMPT + SERVE_NEW,
+                      SERVE_B, device=dev)
+    tok, logits, prefill_ms, decode_ms = timed_generate(eng, batch, dev)
+    torch.save({"tokens": tok.cpu(), "logits": logits.cpu()}, tmp / "want_serve.pt")
+    print(f"  here, one process on `kernel`: {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}), B = "
+          f"{SERVE_B}, {SERVE_PROMPT}-token prompts, {SERVE_NEW} new: prefill {prefill_ms:.1f} ms, decode "
+          f"{decode_ms:.1f} ms a token", flush=True)
+    del eng, tok, logits
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    launches = {}
+    for world in sorted({int(np.prod(c[4])) for c in SHARD_CASES}):
+        t0 = time.perf_counter()
+        tasks = ["gemms"] + (["serving"] if world == SHARD_SERVE_WORLD else [])
+        results = run_ranks(tasks, world, tmp, dev)
+        for rank, res in enumerate(results["gemms"]):
+            for line in res["cases"]:
+                if not line["same_bits"]:
+                    raise AssertionError(f"10a rank {rank} of {world}: {line}")
+        for line in results["gemms"][0]["cases"]:
+            print(f"  10a {line['routine']} {line['size']}^3 {line['mode']} {line['execution']} on mesh "
+                  f"{tuple(line['mesh'])} ({world} ranks, {line['backend']}): {line['ms']:.2f} ms (one process "
+                  f"on `kernel` {kernel_ms[line['routine'], line['size'], line['mode']]:.2f}), "
+                  f"{line['allreduce_bytes'] / 2**20:.1f} MiB all-reduced, collectives {line['collective_ms']:.2f} "
+                  f"ms ({100 * line['collective_ms'] / line['ms']:.1f} %), every rank bitwise the kernel output",
+                  flush=True)
+        for rank, res in enumerate(results.get("serving", [])):
+            if not res["same_bits"]:
+                raise AssertionError(f"10b rank {rank}: {res}")
+            print(f"  10b rank {rank}: {cfg.name} on mesh (1, 1, 2) ({res['backend']}): prefill "
+                  f"{res['prefill_ms']:.1f} ms, decode {res['decode_ms']:.1f} ms a token, tokens and logits "
+                  f"bitwise the kernel engine's", flush=True)
+        for res in results.values():
+            add_counts(launches, res[0]["launches"])
+        print(f"  world of {world}: {time.perf_counter() - t0:.1f} s with the ranks' start", flush=True)
+    return launches
+
+
+def rank_gemms(dev, tmp):
+    """Rank side of 10a: this world's cases, a warm-up call for each
+    routine and execution's first, then each timed call, its collectives
+    logged and timed."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    import repro_torch.kernels as kernels
+    from repro_torch import GemmPolicy, linalg
+    from repro_torch.distributed import sharded_gemm
+
+    world = dist.get_world_size()
+    coll = [0.0]
+    real = sharded_gemm.collective
+
+    def timed(*args, **kwargs):
+        _sync(dev)
+        t = time.perf_counter()
+        out = real(*args, **kwargs)
+        _sync(dev)
+        coll[0] += time.perf_counter() - t
+        return out
+
+    sharded_gemm.collective = timed
+    kernels.reset_launches()
+    meshes, warm, lines = {}, set(), []
+    for routine, size, mode, execution, shape in SHARD_CASES:
+        if int(np.prod(shape)) != world:
+            continue
+        if shape not in meshes:
+            meshes[shape] = DeviceMesh(dev.type, torch.arange(world).reshape(shape), mesh_dim_names=SHARD_NAMES)
+        a, b = card_operands(routine, size, dev)
+        pol = shard_policy(GemmPolicy, routine, mode, execution, meshes[shape])
+        if (routine, execution) not in warm:
+            warm.add((routine, execution))
+            linalg.matmul(a, b, policy=pol, device=dev)
+        _sync(dev)
+        coll[0] = 0.0
+        with sharded_gemm.CollectiveLog() as log:
+            t = time.perf_counter()
+            y = linalg.matmul(a, b, policy=pol, device=dev)
+            _sync(dev)
+            ms = (time.perf_counter() - t) * 1e3
+        want = torch.load(tmp / f"want_{routine}_{size}_{mode}.pt").to(dev)
+        same = same_bits(y, want)
+        lines.append({"routine": routine, "size": size, "mode": mode, "execution": execution, "mesh": shape,
+                      "backend": dist.get_backend(), "ms": ms, "collective_ms": coll[0] * 1e3,
+                      "allreduce_bytes": sum(int(np.prod(s)) * 8 for op, _, s, _ in log.calls if op == "sum"),
+                      "collectives": [[op, str(dt), list(s), d] for op, dt, s, d in log.calls],
+                      "same_bits": same, "difference": None if same else first_difference(y, want)})
+        del a, b, y, want
+    sharded_gemm.collective = real
+    return {"cases": lines, "launches": kernels.launch_counts()}
+
+
+def rank_serving(dev, tmp):
+    """Rank side of 10b: the sharded engine on (1, 1, 2), timed as here."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    import repro_torch.kernels as kernels
+    from repro_torch import GemmPolicy
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeEngine
+
+    cfg, batch = shard_serve_model(dev)
+    mesh = DeviceMesh(dev.type, torch.arange(2).reshape(1, 1, 2), mesh_dim_names=SHARD_NAMES)
+    pol = GemmPolicy(backend="ozaki2_f32", execution="sharded", mesh=mesh)
+    eng = ServeEngine(Model(dataclasses.replace(cfg, gemm_policy=pol)),
+                      Model(cfg).init(torch.Generator().manual_seed(0), device=dev), SERVE_PROMPT + SERVE_NEW,
+                      SERVE_B, device=dev)
+    kernels.reset_launches()
+    tok, logits, prefill_ms, decode_ms = timed_generate(eng, batch, dev)
+    want = torch.load(tmp / "want_serve.pt")
+    same = same_bits(tok.cpu(), want["tokens"]) and same_bits(logits.cpu(), want["logits"])
+    return {"same_bits": same, "backend": dist.get_backend(), "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "launches": kernels.launch_counts(),
+            "difference": None if same else first_difference(logits.cpu(), want["logits"])}
+
+
+def cli_record(kind, argv):
+    """The serve (or train) CLI's main on `argv`, its tokens (or every
+    step's loss) recorded: (exit code, the record)."""
+    if kind == "serve":
+        from repro_torch.launch import serve as cli
+        from repro_torch.serve import ServeEngine
+
+        rec, real = [], ServeEngine.generate
+
+        def recording(self, *args, **kwargs):
+            out = real(self, *args, **kwargs)
+            rec.append(out.cpu().tolist())
+            return out
+
+        ServeEngine.generate = recording
+        try:
+            return cli.main(argv), rec
+        finally:
+            ServeEngine.generate = real
+    from repro_torch.launch import train as cli
+
+    rec, real = [], cli.train_loop
+
+    def recording(*args, **kwargs):
+        params, hist = real(*args, **kwargs)
+        rec.extend(hist)
+        return params, hist
+
+    cli.train_loop = recording
+    try:
+        with deterministic():  # the embedding's backward
+            return cli.main(argv), rec
+    finally:
+        cli.train_loop = real
+
+
+def sharded_clis(dev, tmp):
+    """Phase 10c: the serve and train CLIs under `python -m
+    torch.distributed.run --nproc-per-node 2 --execution sharded --residue
+    2`, each rank's tokens (the serve CLI) or every step's loss (the train
+    CLI) equal to the same CLI's on `--execution kernel` here; rank 0
+    alone prints."""
+    for kind, flags in (("serve", SHARD_SERVE_CLI), ("train", SHARD_TRAIN_CLI)):
+        rc, want = cli_record(kind, flags + ["--execution", "kernel", "--device", dev.type])
+        if rc != 0:
+            raise AssertionError(f"the {kind} CLI on kernel exited {rc}")
+        argv = flags + ["--execution", "sharded", "--residue", "2", "--device", dev.type]
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+                            __file__, "--rank-task", f"cli_{kind}", str(tmp), dev.type, *argv],
+                           capture_output=True, text=True, timeout=RANK_TIMEOUT)
+        if r.returncode != 0:
+            raise AssertionError(f"torch.distributed.run of the {kind} CLI exited {r.returncode}:\n"
+                                 f"{r.stdout[-4000:]}\n{r.stderr[-6000:]}")
+        printed = [line for line in r.stdout.splitlines() if line.startswith("[")]
+        got = [json.loads((tmp / f"cli_{kind}.rank{rank}.json").read_text()) for rank in range(2)]
+        if any(g != want for g in got) or len(printed) != 1:
+            raise AssertionError(f"{kind} CLI: ranks {got} against kernel {want}; printed {printed}")
+        print(f"  10c python -m torch.distributed.run --nproc-per-node 2 -m repro_torch.launch.{kind} "
+              f"{' '.join(argv)}: exit 0 in {time.perf_counter() - t0:.1f} s, {printed[0]!r} from rank 0 alone, "
+              f"both ranks' {'tokens' if kind == 'serve' else 'losses'} {want} bitwise --execution kernel's",
+              flush=True)
+
+
+def rank_main(tasks, tmp, device_type, argv) -> int:
+    """A rank of phase 10 (this script started with --rank-task)."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+    tmp = pathlib.Path(tmp)
+    rank = int(os.environ["RANK"])
+    if tasks.startswith("cli_"):  # the CLI joins the launcher's group itself
+        rc, rec = cli_record(tasks[4:], argv)
+        (tmp / f"{tasks}.rank{rank}.json").write_text(json.dumps(rec))
+        return rc
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world
+
+    dev, _ = init_world(torch.device(device_type))
+    try:
+        for task in tasks.split(","):
+            out = {"gemms": rank_gemms, "serving": rank_serving}[task](dev, tmp)
+            (tmp / f"{task}.rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--rank-task"]:
+        return rank_main(*sys.argv[2:5], sys.argv[5:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the card", file=sys.stderr)
         return 1
@@ -3277,6 +3653,22 @@ def main() -> int:
     train_cli()
     print(f"  phase 9 launches: {train_counts}", flush=True)
     print(f"  phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t10 = time.perf_counter()
+    shard_tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_shard_"))
+    try:
+        print("phase 10a: sharded GEMMs, ranks on the card (1 over NCCL, 2 and 4 over gloo); 10b: "
+              f"starcoder2-3b at full width, {SHARD_SERVE_LAYERS} layers, served by the 2 ranks", flush=True)
+        shard_counts = sharded_phase(dev, GemmPolicy, linalg, shard_tmp)
+        print("phase 10c: the serve and train CLIs under torch.distributed.run, 2 ranks", flush=True)
+        sharded_clis(dev, shard_tmp)
+    finally:
+        import shutil
+
+        shutil.rmtree(shard_tmp, ignore_errors=True)
+    shard_counts = {k: v for k, v in shard_counts.items() if v}
+    print(f"  phase 10 launches (rank 0): {shard_counts}", flush=True)
+    print(f"  phase 10 took {time.perf_counter() - t10:.1f} s", flush=True)
 
     launches = {"kernel": counts, "fused": fused_counts, "fp8": fp8_counts, "tune": tune_counts,
                 "attention": attention_counts}
@@ -3292,6 +3684,7 @@ def main() -> int:
             "serve_launches": serve_counts.get(name, 0),
             "blocks_serve_launches": blocks_counts.get(name, 0),
             "train_launches": train_counts.get(name, 0),
+            "sharded_launches": shard_counts.get(name, 0),
             "tma_launches": tma.get(name),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],

@@ -9,7 +9,9 @@ float64 grade, `execution="kernel"` on four hand-written Hopper kernels,
 `execution="per_modulus_kernel"` on the same kernels one modulus at a
 time, `execution="fused"` on one of two megakernels per GEMM, and
 `execution="fp8"` with the residue products on two e4m3 tensor-core
-kernels (`repro_torch.kernels`); all differentiate through
+kernels (`repro_torch.kernels`), and `execution="sharded"` the kernel
+execution spread over a `torch.distributed` device mesh
+(`repro_torch.distributed`, `launch.mesh`); all differentiate through
 `torch.autograd`.  They compute on the card unless the caller passes
 ``device="cpu"``.
 `python -m repro_torch.tune` calibrates the card and tunes the kernels'
@@ -20,6 +22,6 @@ attention-family archs with every linear on the emulated GEMM.
 """
 from . import linalg
 from .core.policy import GemmPolicy
-from .linalg import current_policy, use_policy
+from .linalg import current_mesh, current_policy, use_mesh, use_policy
 
-__all__ = ["GemmPolicy", "current_policy", "linalg", "use_policy"]
+__all__ = ["GemmPolicy", "current_mesh", "current_policy", "linalg", "use_mesh", "use_policy"]

@@ -225,24 +225,37 @@ def execute_plan(plan: EmulationPlan, a, b, backend):
 
 def _blocked_pipeline_real(plan, backend, ctx, e_mu, ares, e_nu, bres_slice, n):
     """Residue GEMM -> reconstruct over output-column blocks; `bres_slice(sl)`
-    yields the B-side residues of one block."""
-    blocks = []
-    for sl in plan.n_block_slices(n):
-        e_r = backend.residue_matmul(ares, bres_slice(sl), ctx)
-        blocks.append(
-            backend.reconstruct(e_r, e_mu, e_nu[sl], ctx, plan.method, plan.real_out_dtype)
-        )
+    yields the B-side residues of one block.
+
+    A backend with the `psum_partial` / `psum_combine` hooks (the sharded
+    worker over a split residue dim) gets the two-phase structure: every
+    block's product first, each reduced to its exact partial planes, then
+    ONE collective over all of them (`psum_combine`, which returns each
+    block's complete residue planes), then the reconstructions."""
+    slices = list(plan.n_block_slices(n))
+    psum_partial = getattr(backend, "psum_partial", None)
+    if psum_partial is not None:
+        planes = backend.psum_combine(
+            [psum_partial(backend.residue_matmul(ares, bres_slice(sl), ctx)) for sl in slices])
+    else:
+        planes = (backend.residue_matmul(ares, bres_slice(sl), ctx) for sl in slices)
+    blocks = [backend.reconstruct(e_r, e_mu, e_nu[sl], ctx, plan.method, plan.real_out_dtype)
+              for e_r, sl in zip(planes, slices)]
     return blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)
 
 
 def _blocked_pipeline_complex(plan, backend, ctx, e_mu, arr, ari, e_nu, bres_slice, n):
     """Complex twin of `_blocked_pipeline_real`; `bres_slice(sl)` yields the
-    (brr, bri) residue pair of one output-column block."""
+    (brr, bri) residue pair of one output-column block.  The two-phase
+    hooks take the stacked CR/CI residues."""
     rdt = plan.real_out_dtype
+    slices = list(plan.n_block_slices(n))
+    pairs = (_complex_product(backend, plan, arr, ari, *bres_slice(sl), ctx) for sl in slices)
+    psum_partial = getattr(backend, "psum_partial", None)
+    if psum_partial is not None:
+        pairs = backend.psum_combine([psum_partial(torch.stack(pair)) for pair in pairs], stacked=True)
     blocks = []
-    for sl in plan.n_block_slices(n):
-        brr, bri = bres_slice(sl)
-        er, ei = _complex_product(backend, plan, arr, ari, brr, bri, ctx)
+    for (er, ei), sl in zip(pairs, slices):
         cr, ci = _reconstruct_pair(backend, er, ei, e_mu, e_nu[sl], ctx, plan.method, rdt)
         blocks.append(torch.complex(cr, ci))
     return blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)
@@ -321,13 +334,29 @@ def _megakernel(backend) -> bool:
     return getattr(backend, "megakernel", False)
 
 
-def _execute_real(plan, a, b, backend):
+def scale_exponents(plan, a, b, backend=None):
+    """The scale exponents (e_mu, e_nu) of a @ b in the plan's mode: the
+    backend's own where it carries them (`exponents`: the sharded worker's,
+    its slice of the whole product's), else computed from `a` and `b`, the
+    accurate mode's bound maxima combined by the backend's
+    `accu_row_combine` / `accu_col_combine` where it has them (the sharded
+    worker: a MAX over the ranks that split the other axis)."""
+    fixed = getattr(backend, "exponents", None)
+    if fixed is not None:
+        return fixed
     ctx = plan.ctx
+    parts = (a.real, a.imag, b.real, b.imag) if plan.is_complex else (a, b)
     if plan.mode == "fast":
-        e_mu, e_nu = scaling.scale_fast_real(a, b, ctx)
-    else:
-        e_mu, e_nu = scaling.scale_accurate_real(a, b, ctx)
-    return _pipeline_real(plan, backend, ctx, e_mu, a, e_nu, b)
+        fast = scaling.scale_fast_complex if plan.is_complex else scaling.scale_fast_real
+        return fast(*parts, ctx)
+    accu = scaling.scale_accurate_complex if plan.is_complex else scaling.scale_accurate_real
+    return accu(*parts, ctx, getattr(backend, "accu_row_combine", None),
+                getattr(backend, "accu_col_combine", None))
+
+
+def _execute_real(plan, a, b, backend):
+    e_mu, e_nu = scale_exponents(plan, a, b, backend)
+    return _pipeline_real(plan, backend, plan.ctx, e_mu, a, e_nu, b)
 
 
 def _pipeline_real(plan, backend, ctx, e_mu, a, e_nu, b):
@@ -348,14 +377,8 @@ def _pipeline_real(plan, backend, ctx, e_mu, a, e_nu, b):
 
 
 def _execute_complex(plan, a, b, backend):
-    ctx = plan.ctx
-    ar, ai = a.real, a.imag
-    br, bi = b.real, b.imag
-    if plan.mode == "fast":
-        e_mu, e_nu = scaling.scale_fast_complex(ar, ai, br, bi, ctx)
-    else:
-        e_mu, e_nu = scaling.scale_accurate_complex(ar, ai, br, bi, ctx)
-    return _pipeline_complex(plan, backend, ctx, e_mu, ar, ai, e_nu, br, bi)
+    e_mu, e_nu = scale_exponents(plan, a, b, backend)
+    return _pipeline_complex(plan, backend, plan.ctx, e_mu, a.real, a.imag, e_nu, b.real, b.imag)
 
 
 def _pipeline_complex(plan, backend, ctx, e_mu, ar, ai, e_nu, br, bi):
@@ -374,7 +397,12 @@ def _pipeline_complex(plan, backend, ctx, e_mu, ar, ai, e_nu, br, bi):
 
 def run_plan(plan: EmulationPlan, a, b, backend):
     """Execute `plan` on (..., m, k) x (..., k, n), batched over the
-    broadcast leading dims (one 2D execution per batch element)."""
+    broadcast leading dims (one 2D execution per batch element).  A backend
+    with its own `run_plan` takes the whole execution over (the sharded
+    backend, which runs 2D products only)."""
+    runner = getattr(backend, "run_plan", None)
+    if runner is not None:
+        return runner(plan, a, b)
     batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
     if not batch:
         return execute_plan(plan, a, b, backend)

@@ -4,15 +4,17 @@ The port's copy of `repro.core.policy`.  A :class:`GemmPolicy` answers
 every static question about a matmul: *what* to emulate (``backend``),
 *how precisely* (``n_moduli``/``mode``/``method``/``out_dtype``), *which
 complex strategy* (``formulation``/``n_block``) and *where* to run it
-(``execution``).  The port runs five executions: the default
-``"reference"`` (plain PyTorch in float64, every CRT method, f64-grade;
-no hand-written kernel), ``"kernel"`` (four hand-written kernels, 4
-launches per GEMM at any N), ``"per_modulus_kernel"`` (the same kernels,
-one product launch per modulus), ``"fused"`` (one megakernel launch per
-GEMM) and ``"fp8"`` (the kernel execution's casts and Garner around
-residue products on the e4m3 engine, 4 launches per GEMM).  The four
-kernel executions quantize through float32 (f32-grade) and are bitwise
-equal to one another.  `policy_matmul` also serves a weight prepared up
+(``execution``).  The port runs the reference's six executions: the
+default ``"reference"`` (plain PyTorch in float64, every CRT method,
+f64-grade; no hand-written kernel), ``"kernel"`` (four hand-written
+kernels, 4 launches per GEMM at any N), ``"per_modulus_kernel"`` (the
+same kernels, one product launch per modulus), ``"fused"`` (one
+megakernel launch per GEMM), ``"fp8"`` (the kernel execution's casts and
+Garner around residue products on the e4m3 engine, 4 launches per GEMM)
+and ``"sharded"`` (the kernel execution spread over a `torch.distributed`
+device mesh, `distributed/sharded_gemm.py`).  The kernel executions
+quantize through float32 (f32-grade) and are bitwise equal to one
+another.  `policy_matmul` also serves a weight prepared up
 front (`prepare_weights`, a right-side `PreparedOperand`).
 
 Backward: `emulated_matmul` is a `torch.autograd.Function` whose cotangent
@@ -29,14 +31,16 @@ measured card under a `repro_torch.tune` calibration (``calibration=`` or
 an ambient `use_calibration`), else the GH200 preset.  The calibration's
 tuned tiles are what the kernels launch.
 
-The reference's other knobs (``execution="sharded"``, ``mesh``,
-``shard_axes``) keep their names here and raise `NotImplementedError`,
-naming the ROADMAP item (queue 1) that brings them.
+A mesh is a `torch.distributed.device_mesh.DeviceMesh` with dims named
+from ``("pod", "data", "model", "residue")``: pinned in the policy
+(``mesh=``) or scoped by `use_mesh` / `linalg.use_policy(policy,
+mesh=...)`; ``execution="fused"`` under a mesh runs sharded too.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from typing import Literal
 
 import numpy as np
@@ -50,10 +54,9 @@ Execution = Literal["reference", "kernel", "per_modulus_kernel", "sharded", "fp8
 
 EXECUTIONS = ("reference", "kernel", "per_modulus_kernel", "sharded", "fp8", "fused")
 
-# the ROADMAP (queue 1) item that ports each execution still missing here
-_EXECUTION_ITEM = {
-    "sharded": "distributed + the 'sharded' execution",
-}
+# the ROADMAP (queue 1) item that brings meshes whose data or model dims
+# shard parameters and activations
+MESH_ITEM = "item 11b, the parameter-sharded training mesh"
 
 _COMPUTE_DTYPES = {
     "native": None,
@@ -76,6 +79,43 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, {item})")
 
 
+_MESH_STATE = threading.local()
+
+
+def _check_mesh(mesh):
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ..distributed.sharding import MESH_AXES
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"a mesh is a torch.distributed DeviceMesh; got {type(mesh).__name__}")
+    if not mesh.mesh_dim_names or not set(mesh.mesh_dim_names) <= set(MESH_AXES):
+        raise ValueError(f"mesh dims must be named from {MESH_AXES}; got {mesh.mesh_dim_names}")
+
+
+def current_mesh():
+    """The innermost `use_mesh` mesh (None outside any scope): the mesh a
+    ``GemmPolicy(execution="sharded", mesh=None)`` runs on."""
+    stack = getattr(_MESH_STATE, "stack", None)
+    return stack[-1] if stack else None
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Scope the thread's default mesh for sharded policies.  Nestable; the
+    innermost scope wins.  `linalg.use_policy(policy, mesh=...)` enters
+    this scope with the policy's."""
+    _check_mesh(mesh)
+    stack = getattr(_MESH_STATE, "stack", None)
+    if stack is None:
+        stack = _MESH_STATE.stack = []
+    stack.append(mesh)
+    try:
+        yield mesh
+    finally:
+        stack.pop()
+
+
 @dataclasses.dataclass(frozen=True)
 class GemmPolicy:
     """Static (hashable) matmul policy, field for field the reference's.
@@ -90,15 +130,17 @@ class GemmPolicy:
     ``formulation``: ``"karatsuba"``, ``"block_a"``, ``"block_b"`` or
     ``"auto"`` (the strategy the performance model prices fastest).
     ``n_block``: an int, None or ``"auto"``.  ``execution``: the default
-    ``"reference"``, ``"kernel"``, ``"per_modulus_kernel"``, ``"fused"``
-    and ``"fp8"`` run; ``"sharded"`` raises.
+    ``"reference"``, ``"kernel"``, ``"per_modulus_kernel"``, ``"fused"``,
+    ``"fp8"`` or ``"sharded"``.
     ``out_dtype``: result dtype name.  ``mode="auto"`` (needs ``rtol``) and
     ``rtol``: the cheapest (mode, n_moduli) whose proven error bound meets
     the tolerance (`resolve_adaptive`).  ``calibration``: the path of a
     `repro_torch.tune` cache pinned for this policy's 'auto' decisions and
-    kernel tiles (an unfit file warns once and changes nothing).  ``mesh``
-    and ``shard_axes`` raise.  The reference's ``interpret`` has no
-    counterpart: tensors on the CPU take the plain versions.
+    kernel tiles (an unfit file warns once and changes nothing).  ``mesh``:
+    the `DeviceMesh` of the sharded execution (None: the `use_mesh`
+    scope's); ``shard_axes``: an optional (residue, m, n) triple of its dim
+    names.  The reference's ``interpret`` has no counterpart: tensors on
+    the CPU take the plain versions.
     """
 
     backend: Backend = "native"
@@ -133,8 +175,17 @@ class GemmPolicy:
                 f"execution={self.execution!r} reconstructs via the Garner "
                 f"kernel only; method={self.method!r} is reference-path only"
             )
-        if self.mesh is not None or self.shard_axes is not None:
-            raise _not_ported("a mesh", "'Distributed + sharded execution'")
+        if self.mesh is not None:
+            _check_mesh(self.mesh)
+        if self.shard_axes is not None:
+            from ..distributed.sharding import MESH_AXES
+
+            if len(self.shard_axes) != 3 or any(ax is not None and ax not in MESH_AXES
+                                                for ax in self.shard_axes):
+                raise ValueError(
+                    f"shard_axes is a (residue, m, n) triple of mesh dims from {MESH_AXES} "
+                    f"or None; got {self.shard_axes!r}")
+            object.__setattr__(self, "shard_axes", tuple(self.shard_axes))
         if self.out_dtype is not None:
             object.__setattr__(self, "out_dtype", dtype_name(self.out_dtype))
 
@@ -153,16 +204,44 @@ class GemmPolicy:
             return self.method
         return "paper" if self.execution == "reference" else "garner"
 
+    def resolved_mesh(self):
+        """The mesh a sharded execution runs on: the pinned one, else the
+        `use_mesh` scope's."""
+        mesh = self.mesh if self.mesh is not None else current_mesh()
+        if mesh is None:
+            raise ValueError(
+                "execution='sharded' needs a mesh: pass GemmPolicy(mesh=...) or enter "
+                "use_mesh(mesh) / repro_torch.use_policy(policy, mesh=mesh)"
+            )
+        return mesh
+
+    def _mesh_pinned(self) -> "GemmPolicy":
+        """This policy with the `use_mesh` scope's mesh pinned where its
+        execution reads one: the backward's products then run on the
+        forward's mesh, wherever `backward` is called."""
+        if self.mesh is None and current_mesh() is not None and self._sharded():
+            return dataclasses.replace(self, mesh=current_mesh())
+        return self
+
+    def _sharded(self) -> bool:
+        """Whether this policy runs over a mesh: `sharded`, or `fused`
+        with a pinned or scoped mesh."""
+        return self.execution == "sharded" or (
+            self.execution == "fused" and (self.mesh is not None or current_mesh() is not None))
+
     def execution_backend(self):
         """The residue backend of this policy's execution."""
-        if self.execution in _EXECUTION_ITEM:
-            raise _not_ported(f"execution={self.execution!r}", _EXECUTION_ITEM[self.execution])
         if self.execution == "reference":
             return REFERENCE
         from ..kernels.ops import Fp8Backend, FusedBackend, KernelBackend, PerModulusKernelBackend
 
-        return {"kernel": KernelBackend, "per_modulus_kernel": PerModulusKernelBackend,
-                "fused": FusedBackend, "fp8": Fp8Backend}[self.execution]()
+        be = {"kernel": KernelBackend, "per_modulus_kernel": PerModulusKernelBackend,
+              "fused": FusedBackend, "fp8": Fp8Backend, "sharded": KernelBackend}[self.execution]()
+        if self._sharded():  # the kernels (or, fused, the megakernel) on each rank's blocks
+            from ..distributed.sharded_gemm import ShardedBackend
+
+            return ShardedBackend(be, self.resolved_mesh(), self.shard_axes)
+        return be
 
     def resolved_calibration(self):
         """The `repro_torch.tune.Calibration` this policy's decisions read:
@@ -272,7 +351,19 @@ class GemmPolicy:
             if resolved is not self:
                 return resolved.plan_for(m, k, n)
         with self._calibration_scope():
-            be = self.execution_backend()  # raises for an execution not ported yet
+            be = self.execution_backend()
+            shape, comm_s = (m, k, n), 0.0
+            factors = getattr(be, "shard_factors", None)
+            if factors is not None:
+                # sharded: price each rank's block plus the all-reduce, so
+                # the 'auto' selections see what a rank runs
+                from . import perfmodel
+
+                md, nd, r = factors(m, n)
+                shape = (m // md, k, n // nd)
+                comm_s = perfmodel.sharded_comm_time_s(
+                    shape[0], shape[2], self.n_moduli or default_n_moduli(self.compute_dtype, self.mode),
+                    r, complex_=self.is_complex)
             return make_plan(
                 self.compute_dtype,
                 n_moduli=self.n_moduli,
@@ -281,10 +372,11 @@ class GemmPolicy:
                 formulation=self.formulation if self.is_complex else None,
                 out_dtype=self.out_dtype,
                 n_block=self.n_block,
-                shape=(m, k, n),
+                shape=shape,
                 fused_karatsuba=getattr(be, "fused_karatsuba", False),
                 modulus_batched=getattr(be, "modulus_batched", False),
                 megakernel=getattr(be, "megakernel", False),
+                comm_s=comm_s,
                 engine=getattr(be, "engine", "int8"),
                 rtol=self.rtol,
             )
@@ -352,7 +444,9 @@ def emulated_matmul(x: torch.Tensor, w: torch.Tensor, policy: GemmPolicy) -> tor
     with `requires_grad` on an operand the backward runs two more emulated
     GEMMs under the same policy (`_EmulatedMatmul`).  An adaptive policy
     (``rtol`` / ``mode='auto'``) is resolved here, for the forward's shape,
-    so the backward's products run the forward's (mode, n_moduli)."""
+    so the backward's products run the forward's (mode, n_moduli); a sharded
+    policy's scoped mesh is pinned here, so they run on the forward's mesh."""
+    policy = policy._mesh_pinned()
     if policy.is_adaptive:
         policy = policy.resolve_adaptive(x.shape[-2], x.shape[-1], w.shape[-1])
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
@@ -398,6 +492,7 @@ def _check_prepared(w: PreparedOperand, policy: GemmPolicy) -> GemmPolicy:
         )
     if w.side != "right":
         raise ValueError("policy_matmul expects a side='right' prepared weight")
+    _refuse_sharded_prepared(policy, "prepared weights are")
     k, n = w.operand_shape
     policy = policy.resolve_adaptive(n, k, n)
     if policy.mode == "accu" and w.raw is None:
@@ -426,6 +521,16 @@ def _check_prepared(w: PreparedOperand, policy: GemmPolicy) -> GemmPolicy:
             "re-prepare with prepare_weights(policy)"
         )
     return policy
+
+
+def _refuse_sharded_prepared(policy: GemmPolicy, what: str):
+    if policy._sharded():
+        raise NotImplementedError(
+            f"{what} not supported under a sharded execution (the prepared residue planes "
+            "live unsharded on one device); serve prepared weights with GemmPolicy("
+            "execution='kernel') or execution='fused' outside any mesh scope, or pass raw "
+            "weights to shard this matmul"
+        )
 
 
 def policy_matmul(x: torch.Tensor, w, policy: GemmPolicy) -> torch.Tensor:
@@ -472,6 +577,7 @@ def prepare_weights(params, policy: GemmPolicy, device=None):
     """
     if policy.backend == "native":
         return params
+    _refuse_sharded_prepared(policy, "prepare_weights is")
     cast_backend = policy.execution_backend()
     ct = policy.compute_dtype
     return _map_weights(params, policy, lambda val, n_moduli, keep_raw: PreparedOperand(

@@ -137,25 +137,36 @@ def accu_cbar_complex(abar, bbar) -> torch.Tensor:
     return torch.maximum(cbar_r, cbar_i)
 
 
-def accu_exponents(cbar, e_abar, e_bbar, a_nz, b_nz, ctx: CRTContext):
-    """cbar bound -> (e_mu, e_nu) integer exponents."""
-    e_mu = _accu_exponent(cbar.amax(dim=1), e_abar, ctx)
-    e_nu = _accu_exponent(cbar.amax(dim=0), e_bbar, ctx)
+def accu_exponents(cbar, e_abar, e_bbar, a_nz, b_nz, ctx: CRTContext, row_combine=None, col_combine=None):
+    """cbar bound -> (e_mu, e_nu) integer exponents.
+
+    `row_combine` / `col_combine` are the sharded execution's collectives:
+    cbar's row maxima cover only this rank's output columns (and its
+    column maxima its rows), so a rank combines them (an int32 MAX, exact)
+    over the ranks that split the other axis.  Without them this is the
+    paper's single-device computation."""
+    rmax, cmax = cbar.amax(dim=1), cbar.amax(dim=0)
+    if row_combine is not None:
+        rmax = row_combine(rmax)
+    if col_combine is not None:
+        cmax = col_combine(cmax)
+    e_mu = _accu_exponent(rmax, e_abar, ctx)
+    e_nu = _accu_exponent(cmax, e_bbar, ctx)
     return (
         torch.where(a_nz, e_mu, torch.zeros_like(e_mu)),
         torch.where(b_nz, e_nu, torch.zeros_like(e_nu)),
     )
 
 
-def scale_accurate_real(a: torch.Tensor, b: torch.Tensor, ctx: CRTContext):
+def scale_accurate_real(a: torch.Tensor, b: torch.Tensor, ctx: CRTContext, row_combine=None, col_combine=None):
     abar, e_abar, a_nz = accu_bound_real(a, "left")
     bbar, e_bbar, b_nz = accu_bound_real(b, "right")
     cbar = int8_matmul(abar, bbar)  # exact upper bound of sum mu|a| nu|b|
-    return accu_exponents(cbar, e_abar, e_bbar, a_nz, b_nz, ctx)
+    return accu_exponents(cbar, e_abar, e_bbar, a_nz, b_nz, ctx, row_combine, col_combine)
 
 
-def scale_accurate_complex(ar, ai, br, bi, ctx: CRTContext):
+def scale_accurate_complex(ar, ai, br, bi, ctx: CRTContext, row_combine=None, col_combine=None):
     abar, e_abar, a_nz = accu_bound_complex(ar, ai, "left")
     bbar, e_bbar, b_nz = accu_bound_complex(br, bi, "right")
     cmax = accu_cbar_complex(abar, bbar)
-    return accu_exponents(cmax, e_abar, e_bbar, a_nz, b_nz, ctx)
+    return accu_exponents(cmax, e_abar, e_bbar, a_nz, b_nz, ctx, row_combine, col_combine)

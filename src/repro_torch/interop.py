@@ -5,8 +5,10 @@
 
 * `policy_from_fields(d)` builds the port's `GemmPolicy` from
   `dataclasses.asdict` of a reference policy, minus the fields that have no
-  counterpart here (`interpret`) or that stay at their defaults on the
-  ported path (`mesh`, `shard_axes`, `calibration`).
+  counterpart here (`interpret`; `mesh`, a JAX mesh of the reference's
+  devices, and with it `shard_axes`: a port policy takes a
+  `torch.distributed` `DeviceMesh` of its own ranks) or that stay at their
+  defaults on the ported path (`calibration`).
 * `model_config_from_fields(d)` builds the port's `ModelConfig` from
   `dataclasses.asdict` of a reference config, its `gemm_policy` through
   `policy_from_fields`.

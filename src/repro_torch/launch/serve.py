@@ -11,8 +11,16 @@ plain versions).  It serves the arch's reduced config with random weights
 (`torch.Generator` seed 0).  An emulated ``--backend`` scopes the model
 onto that `GemmPolicy` via `repro_torch.use_policy` around the config
 lookup and serves in float32, as the reference does; ``--execution``
-picks the residue backend (``sharded`` raises, as the policy does, and
-so does a ``--residue`` mesh axis other than 1).
+picks the residue backend.  ``--execution sharded`` spreads every
+emulated linear over a (1, 1, R) mesh of the run's ranks, R =
+``--residue`` (default: every rank), clamped to the ranks there are:
+
+    python -m torch.distributed.run --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch starcoder2-3b --backend ozaki2_f32 --execution sharded --residue 2
+
+Under the launcher each rank serves the same prompts and rank 0 alone
+prints; without one it runs a world of one (`launch.mesh.init_world`).
+A ``--residue`` other than 1 on another execution is refused.
 ``--prepare`` residue-casts the weights once at startup with the selected
 execution; ``--prepared-dir`` keeps those planes so a restarted server
 restores them instead of preparing again.  Every arch of
@@ -26,14 +34,16 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import use_policy
 from ..configs import ARCHS, get_reduced
 from ..core.executor import resolve_device
-from ..core.policy import _EXECUTION_ITEM, GemmPolicy, _not_ported
+from ..core.policy import GemmPolicy
 from ..models import Model
 from ..serve import ServeEngine
 from ..tune.cli import add_calibration_args, apply_calibration_args
+from .mesh import init_world, make_host_mesh
 
 
 def prompt_batch(cfg, batch: int, prompt_len: int, rng: np.random.Generator, device) -> dict:
@@ -69,8 +79,8 @@ def main(argv=None) -> int:
                     help="residue backend running the emulation plan (fp8: the e4m3 "
                          "digit-GEMM engine; fused: the one-launch megakernel)")
     ap.add_argument("--residue", type=int, default=1,
-                    help="residue mesh-axis size (the sharded execution: not ported, "
-                         "so anything but 1 raises)")
+                    help="residue mesh-axis size of the sharded execution (default 1: "
+                         "every rank of the run)")
     ap.add_argument("--mode", default="fast", choices=["fast", "accu", "auto"],
                     help="paper scaling mode; 'auto' picks the cheapest mode meeting "
                          "--rtol per shape")
@@ -86,12 +96,25 @@ def main(argv=None) -> int:
     apply_calibration_args(args, device=device)
     if args.mode == "auto" and args.rtol is None:
         ap.error("--mode auto needs an accuracy target: pass --rtol")
-    if args.residue != 1:
-        raise _not_ported(f"--residue {args.residue} (a residue mesh axis)", _EXECUTION_ITEM["sharded"])
+    if args.residue != 1 and args.execution != "sharded":
+        ap.error(f"--residue {args.residue} is the sharded execution's mesh axis; "
+                 f"--execution {args.execution} has none")
+    mesh, owned = None, False
+    if args.execution == "sharded" and args.backend != "native":
+        device, owned = init_world(device)
+        mesh = make_host_mesh(1, 1, residue=args.residue if args.residue > 1 else dist.get_world_size(),
+                              device_type=device.type)
+    try:
+        return _serve(args, device, mesh)
+    finally:
+        if owned:
+            dist.destroy_process_group()
 
+
+def _serve(args, device, mesh) -> int:
     scope = contextlib.nullcontext()
     if args.backend != "native":
-        scope = use_policy(GemmPolicy(backend=args.backend, execution=args.execution,
+        scope = use_policy(GemmPolicy(backend=args.backend, execution=args.execution, mesh=mesh,
                                       mode=args.mode, rtol=args.rtol))
     with scope:
         cfg = get_reduced(args.arch, **({} if args.backend == "native" else {"dtype": "float32"}))
@@ -113,8 +136,9 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
-    print(f"[{args.arch}] {tuple(toks.shape)} in {dt:.2f}s "
-          f"({args.batch * args.new_tokens / dt:.1f} tok/s on {device.type})")
+    if mesh is None or dist.get_rank() == 0:
+        print(f"[{args.arch}] {tuple(toks.shape)} in {dt:.2f}s "
+              f"({args.batch * args.new_tokens / dt:.1f} tok/s on {device.type})")
     return 0
 
 

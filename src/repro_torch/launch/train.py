@@ -17,23 +17,35 @@ published one) from random weights (`torch.Generator` seed 0) on the
 synthetic data, resuming from ``--ckpt-dir`` when it holds a
 checkpoint, and prints ``[arch] loss first -> last``.
 
-One card: ``--mesh``, ``--execution sharded`` and a ``--residue`` axis
-other than 1 raise (ROADMAP queue 1, item 11); ``--seq-shard`` sets the
-activation layout, which has no effect on one card.
+``--execution sharded`` spreads every emulated linear of the step over a
+(1, 1, R) mesh of the run's ranks, R = ``--residue`` (default: every
+rank), each rank holding the whole model and batch:
+
+    python -m torch.distributed.run --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch mamba2-130m --backend ozaki2_f32 --execution sharded --residue 2
+
+Under the launcher rank 0 alone prints and saves; without one it runs a
+world of one.  ``--mesh DxM`` (parameters and batches sharded) raises
+(ROADMAP queue 1, item 11b); a ``--residue`` other than 1 on another
+execution is refused; ``--seq-shard`` sets the activation layout, which has
+no effect without that mesh.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 
+import torch.distributed as dist
+
 from ..configs import ARCHS, get_config, get_reduced
 from ..core.executor import resolve_device
-from ..core.policy import _EXECUTION_ITEM, GemmPolicy, _not_ported
+from ..core.policy import MESH_ITEM, GemmPolicy, _not_ported
 from ..data import DataConfig
 from ..models import Model
 from ..optim import AdamWConfig
 from ..train import TrainLoopConfig, train_loop
 from ..tune.cli import add_calibration_args, apply_calibration_args
+from .mesh import init_world, make_host_mesh
 
 
 def parse_n_block(s: str):
@@ -53,17 +65,17 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--grad-accum", type=int, default=1)
-    ap.add_argument("--mesh", default=None, help="DxM (a device mesh: not ported, raises)")
+    ap.add_argument("--mesh", default=None, help="DxM (a parameter-sharded mesh: not ported, raises)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--backend", default="native",
                     choices=["native", "ozaki2_f32", "ozaki2_f64", "ozaki2_c64", "ozaki2_c128"])
     ap.add_argument("--execution", default="reference",
                     choices=["reference", "kernel", "per_modulus_kernel", "sharded", "fp8", "fused"],
                     help="residue backend running the emulation plan (fp8: the e4m3 digit-GEMM "
-                         "engine; fused: the one-launch megakernel; sharded: not ported, raises)")
+                         "engine; fused: the one-launch megakernel; sharded: over the run's ranks)")
     ap.add_argument("--residue", type=int, default=1,
-                    help="residue mesh-axis size (the sharded execution: not ported, so anything "
-                         "but 1 raises)")
+                    help="residue mesh-axis size of the sharded execution (default 1: every rank "
+                         "of the run)")
     ap.add_argument("--mode", default="fast", choices=["fast", "accu", "auto"],
                     help="paper scaling mode; 'auto' picks the cheapest mode meeting --rtol per shape")
     ap.add_argument("--rtol", type=float, default=None,
@@ -84,16 +96,27 @@ def main(argv=None) -> int:
     add_calibration_args(ap)
     args = ap.parse_args(argv)
     if args.mesh:
-        raise _not_ported(f"--mesh {args.mesh} (a device mesh)", _EXECUTION_ITEM["sharded"])
-    if args.residue != 1:
-        raise _not_ported(f"--residue {args.residue} (a residue mesh axis)", _EXECUTION_ITEM["sharded"])
-    if args.execution in _EXECUTION_ITEM:
-        raise _not_ported(f"--execution {args.execution}", _EXECUTION_ITEM[args.execution])
+        raise _not_ported(f"--mesh {args.mesh} (a parameter-sharded mesh)", MESH_ITEM)
+    if args.residue != 1 and args.execution != "sharded":
+        ap.error(f"--residue {args.residue} is the sharded execution's mesh axis; "
+                 f"--execution {args.execution} has none")
     device = resolve_device(args.device)
     apply_calibration_args(args, device=device)
     if args.mode == "auto" and args.rtol is None:
         ap.error("--mode auto needs an accuracy target: pass --rtol")
+    mesh, owned = None, False
+    if args.execution == "sharded" and args.backend != "native":
+        device, owned = init_world(device)
+        mesh = make_host_mesh(1, 1, residue=args.residue if args.residue > 1 else dist.get_world_size(),
+                              device_type=device.type)
+    try:
+        return _train(args, device, mesh)
+    finally:
+        if owned:
+            dist.destroy_process_group()
 
+
+def _train(args, device, mesh) -> int:
     cfg = (get_reduced if args.reduced else get_config)(args.arch)
     over = {}
     if args.backend != "native":
@@ -103,6 +126,7 @@ def main(argv=None) -> int:
             formulation=args.formulation,
             n_block=args.n_block,
             execution=args.execution,
+            mesh=mesh,
             rtol=args.rtol,
         )
         over["dtype"] = "float32"
@@ -123,8 +147,10 @@ def main(argv=None) -> int:
         ckpt_dir=args.ckpt_dir,
         grad_accum=args.grad_accum,
     )
-    _, hist = train_loop(model, data, loop, AdamWConfig(lr=args.lr, grad_clip=5.0), device=device)
-    if hist:
+    first = mesh is None or dist.get_rank() == 0
+    _, hist = train_loop(model, data, loop, AdamWConfig(lr=args.lr, grad_clip=5.0), mesh=mesh,
+                         log=print if first else (lambda line: None), device=device)
+    if hist and first:
         print(f"[{args.arch}] loss {hist[0]:.4f} -> {hist[-1]:.4f}")
     return 0
 

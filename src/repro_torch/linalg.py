@@ -51,21 +51,25 @@ from .core.policy import (
     BACKEND_FOR_DTYPE,
     NATIVE,
     GemmPolicy,
+    current_mesh,
     emulated_matmul,
     policy_matmul,
     prepare_weights,
+    use_mesh,
 )
 
 __all__ = [
     "GemmPolicy",
     "PreparedOperand",
     "cgemm",
+    "current_mesh",
     "current_policy",
     "dgemm",
     "matmul",
     "prepare_weights",
     "resolve_device",
     "sgemm",
+    "use_mesh",
     "use_policy",
     "zgemm",
 ]
@@ -80,10 +84,12 @@ def current_policy() -> GemmPolicy:
 
 
 @contextlib.contextmanager
-def use_policy(policy: GemmPolicy | str):
+def use_policy(policy: GemmPolicy | str, *, mesh=None):
     """Scope every `linalg.matmul` in this thread to `policy` (or a backend
     name, shorthand for ``GemmPolicy(backend=name)``).  Nestable; the
-    innermost scope wins."""
+    innermost scope wins.  `mesh` (a `DeviceMesh`) also scopes the default
+    mesh (`use_mesh`) that a ``GemmPolicy(execution="sharded", mesh=None)``
+    runs on, so one statement spreads every matmul of a model over it."""
     if isinstance(policy, str):
         policy = GemmPolicy(backend=policy)
     if not isinstance(policy, GemmPolicy):
@@ -94,11 +100,12 @@ def use_policy(policy: GemmPolicy | str):
     stack = getattr(_STATE, "stack", None)
     if stack is None:
         stack = _STATE.stack = []
-    stack.append(policy)
-    try:
-        yield policy
-    finally:
-        stack.pop()
+    with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        stack.append(policy)
+        try:
+            yield policy
+        finally:
+            stack.pop()
 
 
 @contextlib.contextmanager

@@ -5,7 +5,9 @@ The port's copy of `repro.train.loop`, on one device (`device`, None: the
 card).  It logs the reference's lines (``step ...``, ``[resume] ...``,
 ``[preempt] ...``) and saves as the reference does, every `ckpt_every`
 steps and on preemption, in its layout, so either package resumes the
-other's.
+other's.  Under a `mesh` (`train.step.make_train_step`'s residue mesh)
+every rank holds the whole state: every rank restores, rank 0 alone
+saves.
 """
 from __future__ import annotations
 
@@ -57,8 +59,10 @@ def train_loop(
 
     start = 0
     ckpt = None
+    writer = False
     if loop_cfg.ckpt_dir:
         ckpt = Checkpointer(loop_cfg.ckpt_dir)
+        writer = mesh is None or mesh.get_rank() == 0
         last = latest_step(loop_cfg.ckpt_dir)
         if last is not None:
             state = ckpt.restore(last, {"params": params, "opt": opt}, device)
@@ -81,7 +85,7 @@ def train_loop(
             history.append(loss)
             if step % loop_cfg.log_every == 0 or step == loop_cfg.steps - 1:
                 log(f"step {step:5d} loss {loss:.4f} gnorm {float(metrics.get('grad_norm', np.nan)):.3f}")
-            if ckpt and ((step + 1) % loop_cfg.ckpt_every == 0 or guard.should_stop):
+            if writer and ((step + 1) % loop_cfg.ckpt_every == 0 or guard.should_stop):
                 ckpt.save(step + 1, {"params": params, "opt": opt}, blocking=not loop_cfg.async_ckpt)
             if guard.should_stop:
                 log(f"[preempt] stopping cleanly at step {step}")

@@ -2,8 +2,11 @@
 AdamW.
 
 The port's copy of `repro.train.step`, off the mesh: `make_train_step`
-returns ``(train_step, None)`` as the reference does without a mesh, and
-a mesh raises (one card; ROADMAP queue 1, item 11).  The step runs
+returns ``(train_step, None)`` as the reference does without a mesh.  A
+mesh whose data and model dims are 1 (a residue mesh) scopes the step:
+every emulated linear whose policy is sharded runs over it, the params
+and batch whole on every rank; a mesh that would shard them raises (the
+parameter-sharded training mesh, ROADMAP queue 1, item 11b).  The step runs
 eagerly: the loss through autograd (each emulated linear's backward is
 two more emulated products, `core.policy._EmulatedMatmul`; with
 ``cfg.remat`` each layer's forward is recomputed in the backward), the
@@ -13,11 +16,13 @@ updates the params and the optimizer state in place.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable
 
 import torch
 
+from ..core.policy import MESH_ITEM, _not_ported, use_mesh
 from ..models.transformer import Model
 from ..optim import AdamWConfig, adamw_init, adamw_update
 from ..tree import tree_leaves, tree_map, unflatten
@@ -57,13 +62,19 @@ def make_train_step(
     splits along its first axis into `grad_accum` microbatches whose grads
     are summed in order (in at least float32) and averaged; its metrics
     are then the loss and the optimizer's only, as in the reference.
-    `rules` (the reference's sharding rules) has no effect off the mesh."""
+    `mesh`: a `DeviceMesh` whose other dims than `residue` are 1, scoped
+    around each step (`use_mesh`); `rules` (the reference's sharding
+    rules) has no effect on such a mesh."""
     if mesh is not None:
-        from ..core.policy import _EXECUTION_ITEM, _not_ported
-
-        raise _not_ported("a training mesh", _EXECUTION_ITEM["sharded"])
+        split = {d: n for d, n in zip(mesh.mesh_dim_names, mesh.shape) if d != "residue" and n > 1}
+        if split:
+            raise _not_ported(f"a training mesh that shards parameters and batches ({split})", MESH_ITEM)
 
     def step_fn(params, opt_state, batch):
+        with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
         if grad_accum == 1:
             loss, metrics, grads = loss_and_grads(model, params, batch)
         else:

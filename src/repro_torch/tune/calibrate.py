@@ -17,10 +17,10 @@ the CPU when the caller asks for ``device="cpu"``, as the tests do):
 * native complex GEMM rates (`HW.native_c64` / `native_c128`), by
   `torch.matmul` (cuBLAS on the card); a failing probe raises;
 * all-reduce bandwidth and collective overhead (`HW.ici_bw` /
-  `collective_launch_s`): (0, 0) with one card, which keeps the presets, as
-  the reference does with one device.  With more than one card it raises:
-  the measurement comes with the distributed port (ROADMAP queue 1, item
-  11).
+  `collective_launch_s`): inside a process group of two or more ranks, a
+  tiny and a large float64 all-reduce over the whole group (every rank
+  calibrates together); (0, 0) without one, which keeps the presets, as
+  the reference does with one device.
 
 Timing is the reference's: host wall time around `torch.cuda.synchronize()`,
 one warm-up call, the median of 3.  The probe sizes are the reference's
@@ -35,6 +35,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.executor import resolve_device
 from .cache import Calibration, live_key
@@ -43,6 +44,7 @@ from .cache import Calibration, live_key
 _MEM_ELEMS = (1 << 20, 1 << 24)       # f32 elements of the bandwidth probe
 _DOT_DIM = (256, 1024)                # square dim of the engine-rate probes
 _NATIVE_DIM = (128, 512)
+_PSUM_ELEMS = (1 << 16, 1 << 22)      # f64 elements of the large all-reduce
 
 
 def _sync(device: torch.device) -> None:
@@ -115,22 +117,26 @@ def _measure_gemm_launch_s(device: torch.device) -> float:
     return _time_s(launch_copy, device, x)
 
 
-def _measure_psum(device: torch.device) -> tuple[float, float]:
-    """(ici_bw B/s, collective_launch_s); (0, 0) with one device, meaning
-    "not measured" — `HW.from_calibration` keeps the presets."""
-    if device.type != "cuda" or torch.cuda.device_count() < 2:
+def _measure_psum(smoke: bool, device: torch.device) -> tuple[float, float]:
+    """(ici_bw B/s, collective_launch_s) of the run's process group; (0, 0)
+    outside a group of two or more ranks, meaning "not measured":
+    `HW.from_calibration` keeps the presets."""
+    if not dist.is_initialized() or dist.get_world_size() < 2:
         return 0.0, 0.0
-    raise NotImplementedError(
-        f"{torch.cuda.device_count()} cards: measuring all-reduce bandwidth needs the "
-        "distributed port (ROADMAP queue 1, item 11, 'Distributed + sharded execution'); "
-        "calibrate on one card (CUDA_VISIBLE_DEVICES)"
-    )
+    d = dist.get_world_size()
+    tiny = torch.zeros(8, dtype=torch.float64, device=device)
+    t_tiny = _time_s(dist.all_reduce, device, tiny)
+    n = _PSUM_ELEMS[0] if smoke else _PSUM_ELEMS[1]
+    big = torch.from_numpy(np.random.default_rng(0).standard_normal(n)).to(device)
+    t_big = _time_s(dist.all_reduce, device, big)
+    # a ring all-reduce moves ~2(d-1)/d of the payload per rank
+    return 2.0 * (d - 1) / d * 8.0 * n / max(t_big - t_tiny, 1e-9), t_tiny
 
 
 def measure_hw(smoke: bool = False, device=None) -> dict:
     """Run every microbenchmark; returns the `HW.from_calibration` dict."""
     device = resolve_device(device)
-    ici_bw, coll_s = _measure_psum(device)
+    ici_bw, coll_s = _measure_psum(smoke, device)
     return {
         "mem_bw": _measure_mem_bw(smoke, device),
         "int8_ops": _measure_int8_ops(smoke, device),

@@ -192,7 +192,9 @@ def test_port_imports_no_jax():
     process itself has JAX loaded by conftest, hence the subprocess)."""
     code = (
         "import repro_torch, repro_torch.kernels.ops, repro_torch.interop, repro_torch.optim, "
-        "repro_torch.data, repro_torch.train, repro_torch.tree, repro_torch.distributed, repro_torch.launch.train, sys; "
+        "repro_torch.data, repro_torch.train, repro_torch.tree, repro_torch.distributed, repro_torch.launch.train, "
+        "repro_torch.distributed.sharded_gemm, repro_torch.distributed.sharding, repro_torch.launch.mesh, "
+        "repro_torch.launch.serve, sys; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert 'repro' not in sys.modules, 'repro imported'"
     )

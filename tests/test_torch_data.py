@@ -8,9 +8,9 @@
 * `PreemptionGuard` and `StragglerWatch` (`repro_torch.distributed`): the
   reference's two cases, and a real SIGTERM turning into a clean stop.
 * `python -m repro_torch.launch.train` on ``--device cpu``: a run, a
-  resumed run, and the flags of one card (``--mesh``, ``--execution
-  sharded``, ``--residue``) raising; without ``--device`` it asks for
-  the card.
+  resumed run, and without a launcher ``--mesh`` raising, ``--execution
+  sharded`` running in a world of one and ``--residue`` refused without
+  it; without ``--device`` it asks for the card.
 """
 import os
 import signal
@@ -108,10 +108,20 @@ def test_train_cli_runs_and_resumes(tmp_path, capsys):
     assert [line.split()[1] for line in second if line.startswith("step ")] == ["10", "11"]
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "2x2"], ["--execution", "sharded", "--backend", "ozaki2_f32"],
-                                   ["--residue", "2"]], ids=["mesh", "sharded", "residue"])
-def test_train_cli_one_card_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="distributed"):
+@pytest.mark.parametrize("flags,error", [
+    (["--mesh", "2x2"], (NotImplementedError, "item 11b")),
+    (["--execution", "sharded", "--backend", "ozaki2_f32"], None),
+    (["--residue", "2"], (SystemExit, "2")),
+], ids=["mesh", "sharded", "residue"])
+def test_train_cli_one_card_flags_raise(flags, error, capsys):
+    """Without a launcher: a parameter-sharded --mesh raises (ROADMAP item
+    11b); --execution sharded runs in a world of one (2 ranks:
+    test_torch_sharded_models); --residue without it is refused."""
+    if error is None:
+        assert train_cli.main(CLI + ["--steps", "1"] + flags) == 0
+        assert "[mamba2-130m] loss" in capsys.readouterr().out
+        return
+    with pytest.raises(error[0], match=error[1]):
         train_cli.main(CLI + ["--steps", "1"] + flags)
 
 

@@ -24,6 +24,7 @@ import repro_torch
 import repro_torch.core.executor as t_executor
 from repro_torch import linalg as tl
 from repro_torch.interop import policy_from_fields
+from repro_torch.launch.mesh import init_world, make_host_mesh
 
 ROUTINES = {"sgemm": np.float32, "dgemm": np.float64, "cgemm": np.complex64, "zgemm": np.complex128}
 
@@ -109,19 +110,33 @@ def test_matmul_under_ambient_policy(rng):
 
 @pytest.mark.parametrize("fields", [{"execution": "sharded"}], ids=["sharded"])
 def test_unported_executions_raise(rng, fields):
-    """Executions not ported raise."""
+    """The last execution ported, `sharded`: without a mesh it raises; on a
+    mesh of one rank it gives the kernel execution's bits (meshes of many
+    ranks: tests/test_torch_sharded.py)."""
     a, b = _operands(rng, np.complex64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         tl.cgemm(a, b, policy=repro_torch.GemmPolicy(**fields), device="cpu")
+    _, owned = init_world(torch.device("cpu"))
+    try:
+        mesh = make_host_mesh(1, 1, 1, device_type="cpu")
+        got = tl.cgemm(a, b, policy=repro_torch.GemmPolicy(**fields, mesh=mesh), device="cpu")
+    finally:
+        if owned:
+            torch.distributed.destroy_process_group()
+    want, kernel = _both("cgemm", a, b)
+    np.testing.assert_array_equal(kernel, want)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize(
-    "fields",
-    [{"mesh": object()}, {"shard_axes": ("residue", "m", "n")}],
+    "fields,error",
+    [({"mesh": object()}, (TypeError, "DeviceMesh")), ({"shard_axes": ("residue", "m", "n")}, (ValueError, "mesh dims"))],
     ids=["mesh", "shard_axes"],
 )
-def test_unported_policy_fields_raise(fields):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_policy_fields_raise(fields, error):
+    """The mesh fields are checked: a mesh is a `DeviceMesh`, `shard_axes`
+    names its dims ('m' and 'n' are no mesh dims)."""
+    with pytest.raises(error[0], match=error[1]):
         repro_torch.GemmPolicy(backend="ozaki2_f32", execution="kernel", **fields)
 
 

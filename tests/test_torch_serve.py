@@ -273,9 +273,10 @@ def test_serve_cli_on_the_cpu(capsys):
                            "--prepare", "--batch", "1", "--prompt-len", "8", "--new-tokens", "2",
                            "--device", "cpu"]) == 0
     assert "tok/s" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="sharded"):
-        serve_cli.main(["--arch", "starcoder2-3b", "--backend", "ozaki2_f32", "--execution", "sharded",
-                        "--batch", "1", "--prompt-len", "4", "--new-tokens", "1", "--device", "cpu"])
+    # the sharded execution without a launcher: a world of one
+    assert serve_cli.main(["--arch", "starcoder2-3b", "--backend", "ozaki2_f32", "--execution", "sharded",
+                           "--batch", "1", "--prompt-len", "4", "--new-tokens", "1", "--device", "cpu"]) == 0
+    assert "[starcoder2-3b] (1, 1) in" in capsys.readouterr().out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve_cli.main(["--arch", "starcoder2-3b", "--new-tokens", "1"])
@@ -290,13 +291,20 @@ def test_serve_cli_serves_every_arch(capsys, arch):
     assert f"[{arch}] (1, 2) in" in capsys.readouterr().out
 
 
-def test_serve_cli_residue_axis_raises():
-    """--residue names the sharded execution's mesh axis, which is not
-    ported: anything but 1 raises instead of being ignored."""
-    with pytest.raises(NotImplementedError, match="--residue 2"):
+def test_serve_cli_residue_axis_raises(capsys):
+    """--residue names the sharded execution's mesh axis: with another
+    execution anything but 1 is refused instead of being ignored; with
+    `sharded` and no launcher it is clamped to the world of one, as the
+    reference clamps it to its devices (2 ranks: test_torch_sharded_models)."""
+    with pytest.raises(SystemExit):
         serve_cli.main(["--arch", "starcoder2-3b", "--backend", "ozaki2_f32", "--execution", "kernel",
                         "--residue", "2", "--batch", "1", "--prompt-len", "4", "--new-tokens", "1",
                         "--device", "cpu"])
+    assert "--residue 2 is the sharded execution's mesh axis" in capsys.readouterr().err
+    assert serve_cli.main(["--arch", "starcoder2-3b", "--backend", "ozaki2_f32", "--execution", "sharded",
+                           "--residue", "2", "--batch", "1", "--prompt-len", "4", "--new-tokens", "1",
+                           "--device", "cpu"]) == 0
+    assert "[starcoder2-3b] (1, 1) in" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("arch", ["starcoder2-3b", "internvl2-26b"])
