@@ -310,7 +310,10 @@ failure is caught.
         4096^3 on (1,1,2) and zgemm accu on (2,1,2): a warm-up call, then
         each timed (host clock around a synchronize) beside this process's
         `kernel` time, with its bytes all-reduced and its collectives'
-        share of the time (`sharded_gemm.collective`, timed);
+        share of the time (`sharded_gemm.collective`, timed); sgemm 2048^3
+        on (1,1,2) and the accu zgemm once more under the analysis's
+        `trace` on every rank: no `CollectiveSafetyPass` finding, an f64
+        SUM among the collectives (and an int32 MAX in accu mode);
     (b) starcoder2-3b at full width, cut to SHARD_SERVE_LAYERS = 2 of its
         30 layers (float32, weights from seed 0), B = 4, 128-token prompts,
         16 new tokens, served by the world of 2 on (1,1,2): tokens and
@@ -322,6 +325,25 @@ failure is caught.
         deterministic algorithms): each rank's tokens and every step's
         loss equal to the same CLI's on `--execution kernel` here, rank 0
         alone printing.
+11. The static analysis (`repro_torch.analysis`):
+    (a) `python -m repro_torch.analysis --matrix smoke -v` on the card in a
+        subprocess (it and (b)'s two run beside (c), each in its own
+        process): every execution x dtype x mode at (32, 96, 24), the
+        adaptive rows, a tiny model's train step and the lints, each row
+        clean (overflow, collective safety, launch count, accuracy);
+    (b) the same at (16, 2^17 + 5, 16), fast mode, over `kernel`,
+        `fused`, `fp8` and `reference` and `per_modulus_kernel` on the
+        real dtypes (accu's bound product and the per-modulus complex
+        product refuse k > 2^17 in both packages): the int8 products in 2
+        K-chunks, the e4m3 ones in 3, every row clean;
+    (c) `kernel`, `per_modulus_kernel`, `fused` and `fp8`, the four
+        dtypes at both shapes: a warm call, then one traced call under
+        `torch.profiler`; the card's launches of each kernel (the
+        profiler's events, each mapped to its wrapper by its function's
+        identifier, `KERNEL_WRAPPER`) equal to the trace's launch records
+        of that wrapper, and their total to `expected_launch_count`;
+    (d) `OverflowPass(k_limit=K_CHUNK_LIMIT // 2)` over (b)'s `kernel`
+        sgemm trace reports a finding.
 
 The last lines are the kernels' JSON record (with each kernel's launches
 in phase 7b, `serve_launches`, in phase 8, `blocks_serve_launches`, in
@@ -3322,6 +3344,7 @@ def sharded_phase(dev, GemmPolicy, linalg, tmp):
             for line in res["cases"]:
                 if not line["same_bits"]:
                     raise AssertionError(f"10a rank {rank} of {world}: {line}")
+                check_rank_analysis(line, rank, world)
         for line in results["gemms"][0]["cases"]:
             print(f"  10a {line['routine']} {line['size']}^3 {line['mode']} {line['execution']} on mesh "
                   f"{tuple(line['mesh'])} ({world} ranks, {line['backend']}): {line['ms']:.2f} ms (one process "
@@ -3341,6 +3364,23 @@ def sharded_phase(dev, GemmPolicy, linalg, tmp):
     return launches
 
 
+def check_rank_analysis(line, rank, world):
+    """A traced case of 10a on one rank: no collective-safety finding, the
+    f64 SUM of the partials (and in accurate mode the int32 MAX of the
+    bound maxima) among its collectives, its output bitwise the kernel's."""
+    key = (line["routine"], line["size"], line["mode"], tuple(line["mesh"]))
+    if key not in TRACED_SHARD_CASES:
+        return
+    got = line.get("analysis")
+    need = {("sum", "torch.float64")} | ({("max", "torch.int32")} if line["mode"] == "accu" else set())
+    if got is None or got["findings"] or not need <= {tuple(c) for c in got["collectives"]} or not got["same_bits"]:
+        raise AssertionError(f"10a rank {rank} of {world}, traced {key}: {got}")
+    if rank == 0:
+        print(f"  10a {key[0]} {key[1]}^3 {key[2]} on mesh {key[3]} traced on each of {world} ranks: no "
+              f"collective-safety finding, collectives {got['collectives']}, output bitwise the kernel's",
+              flush=True)
+
+
 def rank_gemms(dev, tmp):
     """Rank side of 10a: this world's cases, a warm-up call for each
     routine and execution's first, then each timed call, its collectives
@@ -3350,6 +3390,7 @@ def rank_gemms(dev, tmp):
 
     import repro_torch.kernels as kernels
     from repro_torch import GemmPolicy, linalg
+    from repro_torch.analysis import CollectiveSafetyPass, trace
     from repro_torch.distributed import sharded_gemm
 
     world = dist.get_world_size()
@@ -3391,6 +3432,12 @@ def rank_gemms(dev, tmp):
                       "allreduce_bytes": sum(int(np.prod(s)) * 8 for op, _, s, _ in log.calls if op == "sum"),
                       "collectives": [[op, str(dt), list(s), d] for op, dt, s, d in log.calls],
                       "same_bits": same, "difference": None if same else first_difference(y, want)})
+        if (routine, size, mode, shape) in TRACED_SHARD_CASES:  # the analysis's view of the same call
+            tr = trace(lambda x, w: linalg.matmul(x, w, policy=pol, device=dev), a, b)
+            lines[-1]["analysis"] = {"findings": [str(f) for f in CollectiveSafetyPass().run(tr)],
+                                     "collectives": sorted({(c.op, str(c.dtype)) for c in tr.collectives}),
+                                     "same_bits": same_bits(tr.result, want)}
+            del tr
         del a, b, y, want
     sharded_gemm.collective = real
     return {"cases": lines, "launches": kernels.launch_counts()}
@@ -3483,6 +3530,147 @@ def sharded_clis(dev, tmp):
               f"{' '.join(argv)}: exit 0 in {time.perf_counter() - t0:.1f} s, {printed[0]!r} from rank 0 alone, "
               f"both ranks' {'tokens' if kind == 'serve' else 'losses'} {want} bitwise --execution kernel's",
               flush=True)
+
+
+# phase 11: the static analysis (`repro_torch.analysis`) on the card.  11b's
+# shape puts k past 2^17, so that the int8 products run 2 K-chunks and the
+# e4m3 ones 3; there accurate mode's bound product refuses k > 2^17 (in
+# the reference too), and so does `per_modulus_kernel`'s complex product,
+# one launch a modulus, which neither package K-chunks: 11b runs fast mode,
+# and the per-modulus execution on the real dtypes.
+ANALYSIS_CHUNKED = (16, INT8_K_LIMIT + 5, 16)
+ANALYSIS_EXECUTIONS = ("kernel", "per_modulus_kernel", "fused", "fp8")  # 11c, under torch.profiler
+ANALYSIS_TIMEOUT = 300
+# each CUDA kernel function (as a profiler names it, by its identifier) and
+# the wrapper whose launches it counts
+KERNEL_WRAPPER = {"residue_cast_kernel": "residue_cast", "int8_mod_gemm_kernel": "int8_mod_gemm",
+                  "karatsuba_kernel": "karatsuba_fused", "crt_garner_kernel": "crt_garner",
+                  "fused_mod_gemm_kernel": "fused_mod_gemm", "fused_karatsuba_kernel": "fused_karatsuba",
+                  "fp8_mod_gemm_kernel": "fp8_mod_gemm", "fp8_karatsuba_kernel": "fp8_karatsuba",
+                  "launch_copy_kernel": "launch_copy", "fa_f32_kernel": "flash_attention",
+                  "fa_bf16_kernel": "flash_attention"}
+# phase 10's cases whose ranks also run under the analysis's trace
+TRACED_SHARD_CASES = {("sgemm", 2048, "fast", (1, 1, 2)), ("zgemm", 4096, "accu", (2, 1, 2))}
+
+
+def start_analysis_cli(argv):
+    """`python -m repro_torch.analysis` with `argv` on the card, started in
+    a subprocess: (argv, the process)."""
+    src = str(pathlib.Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [src, os.environ.get("PYTHONPATH")])))
+    return argv, subprocess.Popen([sys.executable, "-m", "repro_torch.analysis", *argv], env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_analysis_cli(what, job, t0):
+    """Wait for a started CLI: exit 0 with every row clean, or the phase
+    fails."""
+    argv, proc = job
+    out, err = proc.communicate(timeout=max(1.0, t0 + ANALYSIS_TIMEOUT - time.perf_counter()))
+    summary = out.strip().splitlines()[-1] if out.strip() else ""
+    m = re.match(r"repro_torch\.analysis: (\d+)/(\d+) rows certified clean \(0 findings\) on cuda", summary)
+    if proc.returncode != 0 or not m or m.group(1) != m.group(2):
+        raise AssertionError(f"{what}: python -m repro_torch.analysis {' '.join(argv)} exited {proc.returncode}:\n"
+                             f"{out[-6000:]}\n{err[-4000:]}")
+    print(f"  {what}: python -m repro_torch.analysis {' '.join(argv)}: exit 0, {m.group(1)}/{m.group(2)} rows "
+          f"certified clean (done {time.perf_counter() - t0:.1f} s into the phase)", flush=True)
+
+
+def device_launches(prof):
+    """The port's kernel launches the card ran under `prof`, by wrapper.  An
+    event named like a port kernel (`PORT_KERNEL_FUNCTIONS`, stems that
+    several sources share) whose identifier maps to no wrapper, or to more
+    than one, fails the phase."""
+    from torch.autograd import DeviceType
+
+    counts = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or not any(k in e.key for k in PORT_KERNEL_FUNCTIONS):
+            continue
+        owners = {KERNEL_WRAPPER[w] for w in re.findall(r"\b(\w+_kernel)\b", e.key) if w in KERNEL_WRAPPER}
+        if len(owners) != 1:
+            raise AssertionError(f"11c: profiler event {e.key!r} maps to wrappers {sorted(owners)}")
+        (owner,) = owners
+        counts[owner] = counts.get(owner, 0) + e.count
+    return counts
+
+
+def analysis_profiled(dev, GemmPolicy, linalg):
+    """Phase 11c: for each execution, dtype and shape, a warm call, then one
+    call traced under `torch.profiler`: the card's launches of each kernel
+    equal to the trace's launch records of its wrapper, their total to
+    `expected_launch_count`.  Returns 11b's `kernel` sgemm trace (for 11d)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.analysis import expected_launch_count, trace
+    from repro_torch.analysis.__main__ import N_MODULI, SMOKE_SHAPE, operands
+    from repro_torch.core.policy import BACKEND_FOR_DTYPE
+
+    chunked_kernel, seen = None, {}
+    for shape in (SMOKE_SHAPE, ANALYSIS_CHUNKED):
+        for execution in ANALYSIS_EXECUTIONS:
+            for dtype_name in N_MODULI:
+                if execution == "per_modulus_kernel" and dtype_name.startswith("complex") and shape[1] > INT8_K_LIMIT:
+                    continue
+                pol = GemmPolicy(backend=BACKEND_FOR_DTYPE[dtype_name], n_moduli=N_MODULI[dtype_name],
+                                 execution=execution)
+                a, b = operands(shape, dtype_name, dev)
+                run = lambda x, w: linalg.matmul(x, w, policy=pol, device=dev)  # noqa: E731
+                run(a, b)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    tr = trace(run, a, b)
+                    torch.cuda.synchronize()
+                got = device_launches(prof)
+                want = expected_launch_count(pol.execution_backend(), pol.plan_for(*shape), shape)
+                if got != tr.launch_counts() or sum(got.values()) != want:
+                    raise AssertionError(f"11c {execution} {dtype_name} {shape}: the card ran {got}, the trace "
+                                         f"records {tr.launch_counts()}, the perfmodel predicts {want}")
+                seen[shape, execution, dtype_name] = got
+                if (shape, execution, dtype_name) == (ANALYSIS_CHUNKED, "kernel", "float32"):
+                    chunked_kernel = tr
+    for shape in (SMOKE_SHAPE, ANALYSIS_CHUNKED):
+        for execution in ANALYSIS_EXECUTIONS:
+            cases = {d: c for (s, e, d), c in seen.items() if (s, e) == (shape, execution)}
+            print(f"  11c {execution} at {shape}: the card's launches by kernel (torch.profiler) == the trace's "
+                  f"== expected_launch_count: {cases}", flush=True)
+    return chunked_kernel
+
+
+def analysis_phase(dev, GemmPolicy, linalg):
+    """Phase 11: 11a the CLI's smoke matrix and 11b the K-chunked shape (three
+    subprocesses, run beside 11c), 11c the profiler's launch counts against
+    the trace's, 11d a negative control: OverflowPass at half the int8
+    limit flags 11b's kernel trace."""
+    from repro_torch.analysis import OverflowPass
+    from repro_torch.core.moduli import K_CHUNK_LIMIT
+
+    t0 = time.perf_counter()
+    shape = [str(d) for d in ANALYSIS_CHUNKED]
+    # the three CLI runs share the card with 11c, each in its own process
+    jobs = [("11a", start_analysis_cli(["--matrix", "smoke", "-v"])),
+            ("11b", start_analysis_cli(["--executions", "kernel", "fused", "fp8", "reference", "--modes", "fast",
+                                        "--shape", *shape, "--skip-model", "--skip-lint", "-v"])),
+            ("11b", start_analysis_cli(["--executions", "per_modulus_kernel", "--dtypes", "float32", "float64",
+                                        "--modes", "fast", "--shape", *shape, "--skip-model", "--skip-lint", "-v"]))]
+    try:
+        chunked_kernel = analysis_profiled(dev, GemmPolicy, linalg)
+        for what, job in jobs:
+            finish_analysis_cli(what, job, t0)
+    finally:
+        for _, (_, proc) in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    ks = [r.k for r in chunked_kernel.launches if r.name == "int8_mod_gemm"]
+    if ks != [INT8_K_LIMIT, 5]:
+        raise AssertionError(f"11b kernel sgemm at {ANALYSIS_CHUNKED}: int8 launches over k = {ks}")
+    findings = OverflowPass(k_limit=K_CHUNK_LIMIT // 2).run(chunked_kernel)
+    if not findings:
+        raise AssertionError("11d: OverflowPass(k_limit=K_CHUNK_LIMIT // 2) certified a launch of k = 2^17")
+    print(f"  11d OverflowPass(k_limit=K_CHUNK_LIMIT // 2) over the kernel sgemm trace at {ANALYSIS_CHUNKED} "
+          f"(int8 launches at k = {ks}): {len(findings)} finding, {findings[0]}", flush=True)
+    print(f"  phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def rank_main(tasks, tmp, device_type, argv) -> int:
@@ -3669,6 +3857,10 @@ def main() -> int:
     shard_counts = {k: v for k, v in shard_counts.items() if v}
     print(f"  phase 10 launches (rank 0): {shard_counts}", flush=True)
     print(f"  phase 10 took {time.perf_counter() - t10:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    print("phase 11: the static analysis (11a the smoke matrix, 11b k = 2^17 + 5, 11c launches by torch.profiler, "
+          "11d a negative control)", flush=True)
+    analysis_phase(dev, GemmPolicy, linalg)
 
     launches = {"kernel": counts, "fused": fused_counts, "fp8": fp8_counts, "tune": tune_counts,
                 "attention": attention_counts}

@@ -159,6 +159,16 @@ class ReferenceBackend:
 
     fused_karatsuba = False
     modulus_batched = False
+    launches_kernels = False  # the perfmodel's pricing aside, it launches none
+
+    def analyze(self, plan, shape=None):
+        """The static-analysis suite certifying this backend running `plan`
+        (`repro_torch.analysis.passes_for_backend`): overflow and
+        collective safety, and given ``shape = (m, k, n)`` the launch count
+        the perfmodel predicts for its capabilities (none here)."""
+        from ..analysis import passes_for_backend
+
+        return passes_for_backend(self, plan, shape)
 
     def cast(self, x, e, axis, ctx, n_limbs):
         """quantize by 2^e along `axis` and residue-decompose (steps IV/V-i/ii)."""

@@ -189,6 +189,20 @@ class ShardedBackend:
         # every residue plane (r == 1)
         return getattr(self.inner, "megakernel", False)
 
+    @property
+    def launches_kernels(self) -> bool:
+        return getattr(self.inner, "launches_kernels", True)
+
+    def analyze(self, plan, shape=None):
+        """The static-analysis suite certifying this backend running `plan`
+        (`repro_torch.analysis.passes_for_backend`): overflow and
+        collective safety (the pass that bites here), and given ``shape =
+        (m, k, n)`` the launch count the perfmodel predicts for a rank's
+        blocks and plane chunk (`shard_factors`)."""
+        from ..analysis import passes_for_backend
+
+        return passes_for_backend(self, plan, shape)
+
     def resolve_axes(self, m: int, n: int) -> GemmShardAxes:
         return resolve_gemm_axes(self.mesh, m, n, self.shard_axes)
 

@@ -13,9 +13,13 @@ round.
 
 `on_card` is the dispatch rule of every kernel wrapper: tensors on the CPU
 take the plain version, tensors on a CUDA device launch the kernel, and
-anything else raises.
+anything else raises.  `traced_launch` is the scope every wrapper enters
+just before that dispatch, so a trace (`repro_torch.analysis.trace`)
+records the same launches whichever way it goes.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -39,6 +43,41 @@ def on_card(*tensors: torch.Tensor) -> bool:
     if device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {device}")
+
+
+#: the active launch recorders (`repro_torch.analysis.trace.Trace`), each
+#: told of every wrapper's launch before its dispatch
+TRACERS: list = []
+
+_UNTRACED = contextlib.nullcontext()
+
+
+class _LaunchScope:
+    """One wrapper call seen by the active recorders: `launch` on entry (the
+    record), `end_launch` on exit (the ops between ran inside it)."""
+
+    def __init__(self, record):
+        self.record = record
+
+    def __enter__(self):
+        for tracer in TRACERS:
+            tracer.launch(*self.record)
+        return self
+
+    def __exit__(self, *exc):
+        for tracer in TRACERS:
+            tracer.end_launch()
+        return False
+
+
+def traced_launch(name: str, tensors, *, k: int | None = None, chunk_limit: int | None = None):
+    """The scope a wrapper dispatches in: kernel `name` (its source's name,
+    the key of `kernels.WRAPPERS`) on `tensors`, contracting `k` (None for
+    a kernel that multiplies nothing), reducing mod p every `chunk_limit`
+    inside the launch (the megakernels).  Free when nothing traces."""
+    if not TRACERS:
+        return _UNTRACED
+    return _LaunchScope((name, tuple(tensors), k, chunk_limit))
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:

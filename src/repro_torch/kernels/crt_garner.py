@@ -25,7 +25,7 @@ import torch
 from ..core import expansion as ex
 from ..core.moduli import CRTContext
 from . import build
-from .common import check_tensor, on_card, split_scale_exponent, sym_mod_f32
+from .common import check_tensor, on_card, split_scale_exponent, sym_mod_f32, traced_launch
 
 
 def _prescale(ctx: CRTContext) -> int:
@@ -196,10 +196,11 @@ def crt_garner(
         e_res = e_res[None]
     if e_res.shape[1] != ctx.n:
         raise ValueError(f"e_res has {e_res.shape[1]} planes, the context {ctx.n}")
-    if on_card(e_res, e_mu, e_nu):
-        out = _launch(e_res, e_mu, e_nu, ctx, out_dd=out_dd)
-    else:
-        out = crt_garner_plain(e_res, e_mu, e_nu, ctx, out_dd=out_dd)
+    with traced_launch("crt_garner", (e_res, e_mu, e_nu)):
+        if on_card(e_res, e_mu, e_nu):
+            out = _launch(e_res, e_mu, e_nu, ctx, out_dd=out_dd)
+        else:
+            out = crt_garner_plain(e_res, e_mu, e_nu, ctx, out_dd=out_dd)
     return out if stacked else out[0]
 
 

@@ -22,7 +22,7 @@ import math
 import torch
 
 from . import build
-from .common import on_card
+from .common import on_card, traced_launch
 
 #: the head dims the CUDA kernel compiles
 HEAD_DIMS = (32, 64, 128, 256)
@@ -170,10 +170,11 @@ def flash_attention(
     version's kv steps."""
     _heads(q, k, v)
     _blocks(q.shape[1], k.shape[1], bq, bk)
-    if on_card(q, k, v):
-        _check_card_inputs(q, k, v)
-        return _launch(q, k, v, causal=causal)
-    return flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk)
+    with traced_launch("flash_attention", (q, k, v)):
+        if on_card(q, k, v):
+            _check_card_inputs(q, k, v)
+            return _launch(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk)
 
 
 flash_attention.launches = 0

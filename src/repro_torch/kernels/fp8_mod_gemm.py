@@ -43,7 +43,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .common import check_tile, on_card, plane_mod_params, sym_mod_f32, sym_mod_int32_dyn
+from .common import check_tile, on_card, plane_mod_params, sym_mod_f32, sym_mod_int32_dyn, traced_launch
 from .int8_mod_gemm import launch_mod_gemm
 from .karatsuba_fused import launch_karatsuba
 
@@ -150,12 +150,13 @@ def fp8_mod_gemm_batched(
         raise ValueError(f"shape mismatch: a {tuple(a.shape)}, b {tuple(b.shape)}, N={len(moduli)}")
     tile = check_tile("fp8", "real", tile)
     tensors = (a, b) if carry is None else (a, b, carry)
-    if on_card(*tensors):
-        out = launch_mod_gemm("fp8_mod_gemm", a, b, moduli=moduli, carry=carry, tile=tile)
-        fp8_mod_gemm_batched.launches += 1
-        fp8_mod_gemm_batched.tma_launches += build.uses_tma("fp8_mod_gemm", a, a, b, b)
-        return out
-    return fp8_mod_gemm_plain(a, b, moduli=moduli, carry=carry)
+    with traced_launch("fp8_mod_gemm", tensors, k=k):
+        if on_card(*tensors):
+            out = launch_mod_gemm("fp8_mod_gemm", a, b, moduli=moduli, carry=carry, tile=tile)
+            fp8_mod_gemm_batched.launches += 1
+            fp8_mod_gemm_batched.tma_launches += build.uses_tma("fp8_mod_gemm", a, a, b, b)
+            return out
+        return fp8_mod_gemm_plain(a, b, moduli=moduli, carry=carry)
 
 
 fp8_mod_gemm_batched.launches = 0
@@ -197,13 +198,14 @@ def fp8_karatsuba_mod_gemm_batched(
         )
     tile = check_tile("fp8", "complex", tile)
     tensors = (ar, ai, br, bi) if carry is None else (ar, ai, br, bi, *carry)
-    if on_card(*tensors):
-        out = launch_karatsuba("fp8_karatsuba", "fp8_karatsuba_launch", ar, ai, br, bi,
-                               moduli=moduli, carry=carry, tile=tile)
-        fp8_karatsuba_mod_gemm_batched.launches += 1
-        fp8_karatsuba_mod_gemm_batched.tma_launches += build.uses_tma("fp8_karatsuba", ar, ai, br, bi)
-        return out
-    return fp8_karatsuba_mod_gemm_plain(ar, ai, br, bi, moduli=moduli, carry=carry)
+    with traced_launch("fp8_karatsuba", tensors, k=k):
+        if on_card(*tensors):
+            out = launch_karatsuba("fp8_karatsuba", "fp8_karatsuba_launch", ar, ai, br, bi,
+                                   moduli=moduli, carry=carry, tile=tile)
+            fp8_karatsuba_mod_gemm_batched.launches += 1
+            fp8_karatsuba_mod_gemm_batched.tma_launches += build.uses_tma("fp8_karatsuba", ar, ai, br, bi)
+            return out
+        return fp8_karatsuba_mod_gemm_plain(ar, ai, br, bi, moduli=moduli, carry=carry)
 
 
 fp8_karatsuba_mod_gemm_batched.launches = 0

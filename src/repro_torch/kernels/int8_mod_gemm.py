@@ -43,6 +43,7 @@ from .common import (
     split_scale_exponent,
     static_mod_params,
     sym_mod_int32_dyn,
+    traced_launch,
 )
 from .crt_garner import _inverse_scales, _weight_table, garner_scaled, route_tables
 
@@ -111,12 +112,13 @@ def int8_mod_gemm_batched(
         raise ValueError(f"k={k} exceeds the exact-int32 limit 2^17; chunk K")
     tile = check_tile("kernel", "real", tile)
     tensors = (a, b) if carry is None else (a, b, carry)
-    if on_card(*tensors):
-        out = launch_mod_gemm("int8_mod_gemm", a, b, moduli=moduli, carry=carry, tile=tile)
-        int8_mod_gemm_batched.launches += 1
-        int8_mod_gemm_batched.tma_launches += build.uses_tma("int8_mod_gemm", a, a, b, b)
-        return out
-    return int8_mod_gemm_plain(a, b, moduli=moduli, carry=carry)
+    with traced_launch("int8_mod_gemm", tensors, k=k):
+        if on_card(*tensors):
+            out = launch_mod_gemm("int8_mod_gemm", a, b, moduli=moduli, carry=carry, tile=tile)
+            int8_mod_gemm_batched.launches += 1
+            int8_mod_gemm_batched.tma_launches += build.uses_tma("int8_mod_gemm", a, a, b, b)
+            return out
+        return int8_mod_gemm_plain(a, b, moduli=moduli, carry=carry)
 
 
 int8_mod_gemm_batched.launches = 0
@@ -270,9 +272,10 @@ def fused_mod_gemm(
     if rhs.shape[-2] != a.shape[-1]:
         raise ValueError(f"shape mismatch: a {tuple(a.shape)}, b {tuple(rhs.shape)}")
     tile = check_tile("fused", "real", tile)
-    if on_card(a, rhs, e_mu, e_nu):
-        return _fused_launch(a, b, e_mu, e_nu, ctx, tile=tile, **kw)
-    return fused_mod_gemm_plain(a, b, e_mu, e_nu, ctx, **kw)
+    with traced_launch("fused_mod_gemm", (a, rhs, e_mu, e_nu), k=a.shape[-1], chunk_limit=kw["chunk_limit"]):
+        if on_card(a, rhs, e_mu, e_nu):
+            return _fused_launch(a, b, e_mu, e_nu, ctx, tile=tile, **kw)
+        return fused_mod_gemm_plain(a, b, e_mu, e_nu, ctx, **kw)
 
 
 fused_mod_gemm.launches = 0

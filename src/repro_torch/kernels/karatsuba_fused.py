@@ -46,6 +46,7 @@ from .common import (
     static_mod_params,
     sym_mod_f32,
     sym_mod_int32_dyn,
+    traced_launch,
 )
 from .crt_garner import garner_scaled
 from .int8_mod_gemm import fused_scales, fused_tables, ptr
@@ -140,13 +141,14 @@ def karatsuba_mod_gemm_batched(
         raise ValueError(f"k={k} exceeds the exact-int32 limit 2^17; chunk K")
     tile = check_tile("kernel", "complex", tile)
     tensors = (ar, ai, br, bi) + (() if carry is None else tuple(carry))
-    if on_card(*tensors):
-        out = launch_karatsuba("karatsuba_fused", "karatsuba_mod_gemm_launch", ar, ai, br, bi,
-                               moduli=moduli, carry=carry, tile=tile)
-        karatsuba_mod_gemm_batched.launches += 1
-        karatsuba_mod_gemm_batched.tma_launches += build.uses_tma("karatsuba_fused", ar, ai, br, bi)
-        return out
-    return karatsuba_mod_gemm_plain(ar, ai, br, bi, moduli=moduli, carry=carry)
+    with traced_launch("karatsuba_fused", tensors, k=k):
+        if on_card(*tensors):
+            out = launch_karatsuba("karatsuba_fused", "karatsuba_mod_gemm_launch", ar, ai, br, bi,
+                                   moduli=moduli, carry=carry, tile=tile)
+            karatsuba_mod_gemm_batched.launches += 1
+            karatsuba_mod_gemm_batched.tma_launches += build.uses_tma("karatsuba_fused", ar, ai, br, bi)
+            return out
+        return karatsuba_mod_gemm_plain(ar, ai, br, bi, moduli=moduli, carry=carry)
 
 
 karatsuba_mod_gemm_batched.launches = 0
@@ -292,9 +294,11 @@ def fused_karatsuba_mod_gemm(
         )
     kw = dict(n_limbs=int(n_limbs), out_dd=out_dd, b_res=b_res, chunk_limit=int(chunk_limit))
     tile = check_tile("fused", "complex", tile)
-    if on_card(ar, ai, *rhs, e_mu, e_nu):
-        return _fused_launch(ar, ai, br, bi, e_mu, e_nu, ctx, tile=tile, **kw)
-    return fused_karatsuba_mod_gemm_plain(ar, ai, br, bi, e_mu, e_nu, ctx, **kw)
+    with traced_launch("fused_karatsuba", (ar, ai, *rhs, e_mu, e_nu), k=ar.shape[-1],
+                       chunk_limit=kw["chunk_limit"]):
+        if on_card(ar, ai, *rhs, e_mu, e_nu):
+            return _fused_launch(ar, ai, br, bi, e_mu, e_nu, ctx, tile=tile, **kw)
+        return fused_karatsuba_mod_gemm_plain(ar, ai, br, bi, e_mu, e_nu, ctx, **kw)
 
 
 fused_karatsuba_mod_gemm.launches = 0

@@ -18,7 +18,7 @@ import functools
 import torch
 
 from . import build
-from .common import check_tensor, on_card
+from .common import check_tensor, on_card, traced_launch
 
 
 def launch_copy_plain(x: torch.Tensor) -> torch.Tensor:
@@ -37,14 +37,15 @@ def _entry():
 def launch_copy(x: torch.Tensor) -> torch.Tensor:
     """A copy of the contiguous f32 tensor `x` in one launch of one block."""
     check_tensor("x", x, torch.float32, tuple(x.shape))
-    if on_card(x):
-        out = torch.empty_like(x)
-        status = _entry()(x.data_ptr(), out.data_ptr(), x.numel(),
-                          torch.cuda.current_stream(x.device).cuda_stream)
-        build.check_launch("launch_copy", status)
-        launch_copy.launches += 1
-        return out
-    return launch_copy_plain(x)
+    with traced_launch("launch_copy", (x,)):
+        if on_card(x):
+            out = torch.empty_like(x)
+            status = _entry()(x.data_ptr(), out.data_ptr(), x.numel(),
+                              torch.cuda.current_stream(x.device).cuda_stream)
+            build.check_launch("launch_copy", status)
+            launch_copy.launches += 1
+            return out
+        return launch_copy_plain(x)
 
 
 launch_copy.launches = 0

@@ -63,6 +63,16 @@ class _KernelBackendBase:
     fused_karatsuba = True
     modulus_batched = False
 
+    def analyze(self, plan, shape=None):
+        """The static-analysis suite certifying this backend running `plan`
+        (`repro_torch.analysis.passes_for_backend`): overflow and
+        collective safety, and given ``shape = (m, k, n)`` the launch count
+        the perfmodel predicts for its capabilities (`modulus_batched`,
+        `fused_karatsuba`, `megakernel`, `engine`)."""
+        from ..analysis import passes_for_backend
+
+        return passes_for_backend(self, plan, shape)
+
     @staticmethod
     def _check_method(method):
         if method != "garner":

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from . import build
-from .common import check_tensor, limb_radix_f32, on_card, residue_tiles_f32
+from .common import check_tensor, limb_radix_f32, on_card, residue_tiles_f32, traced_launch
 
 
 def residue_cast_plain(a, scale1, scale2, *, moduli, n_limbs, scale_axis):
@@ -83,10 +83,11 @@ def residue_cast(
     if not stacked:
         a = a[None]
     kw = dict(moduli=tuple(int(p) for p in moduli), n_limbs=int(n_limbs), scale_axis=scale_axis)
-    if on_card(a, scale1, scale2):
-        out = _launch(a, scale1, scale2, **kw)
-    else:
-        out = residue_cast_plain(a, scale1, scale2, **kw)
+    with traced_launch("residue_cast", (a, scale1, scale2)):
+        if on_card(a, scale1, scale2):
+            out = _launch(a, scale1, scale2, **kw)
+        else:
+            out = residue_cast_plain(a, scale1, scale2, **kw)
     return out if stacked else out[0]
 
 

@@ -181,6 +181,28 @@ def test_no_int8_crosses_the_mesh(pool, rng):
             _check_log(log, np.complex64, mode)
 
 
+def test_collective_safety_certifies_every_rank(pool, rng):
+    """The analysis's collective-safety pass over each rank's trace: no
+    finding on (1, 1, 2) in fast mode or on (2, 1, 2) in accurate mode,
+    with the f64 SUM of the partials (and in accurate mode the int32 MAX
+    of the bound maxima) present; the same records with a hand-made int8
+    collective added are flagged."""
+    from repro_torch.analysis import Collective, CollectiveSafetyPass, Trace
+
+    for dtype, mode, shape in ((np.float32, "fast", (1, 1, 2)), (np.complex128, "accu", (2, 1, 2))):
+        a, b = _operands(rng, dtype)
+        fields = {**_fields(dtype, mode=mode), "execution": "sharded"}
+        for findings, colls in _on_mesh(pool.run(torch_ranks.traced_collectives, shape, a, b, fields), shape):
+            assert findings == []
+            assert ("sum", "torch.float64") in colls
+            assert (mode == "accu") == (("max", "torch.int32") in colls)
+        tr = Trace()
+        tr.collectives = [Collective(op, getattr(torch, dt.removeprefix("torch.")), (1,), "residue")
+                          for op, dt in colls + [("sum", "torch.int8")]]
+        flagged = CollectiveSafetyPass().run(tr)
+        assert len(flagged) == 1 and "int8 array crosses the mesh via `sum`" in flagged[0].message
+
+
 def test_sharded_grad_matches_kernel(pool, rng):
     """The backward's products run sharded too (the scope's mesh pinned at
     the forward, `backward` called outside it): y, dX and dW bitwise the

@@ -127,6 +127,21 @@ def sharded_matmul(shape, a, b, fields, names=NAMES):
     return y.numpy(), [(op, str(dt), shp, dim) for op, dt, shp, dim in log.calls]
 
 
+def traced_collectives(shape, a, b, fields):
+    """`linalg.matmul(a, b)` under the sharded policy, traced
+    (`repro_torch.analysis.trace`): (the collective-safety pass's findings,
+    each collective as (op, dtype)) on a rank of the mesh."""
+    from repro_torch import linalg
+    from repro_torch.analysis import CollectiveSafetyPass, trace
+
+    mesh = mesh_of(shape)
+    if not _on(mesh):
+        return None
+    pol = _policy(fields, mesh)
+    tr = trace(lambda x, w: linalg.matmul(x, w, policy=pol, device="cpu"), torch.from_numpy(a), torch.from_numpy(b))
+    return [str(f) for f in CollectiveSafetyPass().run(tr)], [(c.op, str(c.dtype)) for c in tr.collectives]
+
+
 def fused_calls(shape, a, b, fields):
     """(output, megakernel calls) of `execution="fused"` under a mesh."""
     from repro_torch import linalg
