@@ -344,6 +344,34 @@ failure is caught.
         of that wrapper, and their total to `expected_launch_count`;
     (d) `OverflowPass(k_limit=K_CHUNK_LIMIT // 2)` over (b)'s `kernel`
         sgemm trace reports a finding.
+12. The parameter-sharded training mesh (`train.step` on a DeviceMesh),
+    its ranks subprocesses of this script sharing the card over gloo,
+    under deterministic algorithms; the one-process steps they are held
+    to run here first:
+    (a) mamba2-130m as published (B 8 x S 256, float32, `kernel`) 2 steps
+        on (2, 1), (1, 2) and (2, 2), and starcoder2-3b at full width, 2
+        of 30 layers (B 4 x S 256), 1 step on (2, 2): every rank's
+        gathered params, optimizer state and losses bitwise (the SHA-256
+        of each leaf's bytes) the one-process step with grad_accum = D;
+        step ms beside the one-process step's, the bytes gathered and
+        all-reduced a step, the collectives' share; the launches of
+        `kernel` (16 a linear a step on each rank);
+    (b) the same on (1, 1, 2) with every linear `sharded`, against
+        `kernel` on one process;
+    (c) the train CLI with `--mesh 2x1` under `python -m
+        torch.distributed.run --nproc-per-node 2` (mamba2-130m as
+        published, 3 steps) prints on each rank the losses of one
+        process with `--grad-accum 2`; from a checkpoint one process
+        wrote at step 10, `--mesh 1x2` resumes to step 12: its restored
+        state gathered is bitwise the checkpoint, its losses those of one
+        process resumed from a copy with `--grad-accum 1`;
+    (d) `error_feedback_psum` on 2 and 4 ranks bitwise its one-process
+        formula; `pipeline_loss` on pp = 2 (starcoder2-3b at full width,
+        2 layers, native float32): its loss within 1e-5 relative of the
+        sequential model's on the card at the pipeline's microbatch
+        shapes, each rank's grads within max(1e-5, 1e-3 max|g|); the
+        whole-batch model's readings printed beside (`rank_pipeline`
+        says why they are not held).
 
 The last lines are the kernels' JSON record (with each kernel's launches
 in phase 7b, `serve_launches`, in phase 8, `blocks_serve_launches`, in
@@ -356,6 +384,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import pathlib
@@ -3673,13 +3702,492 @@ def analysis_phase(dev, GemmPolicy, linalg):
     print(f"  phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# phase 12: the parameter-sharded training mesh (`train.step` on a
+# DeviceMesh), its ranks subprocesses of this script sharing the card over
+# gloo (run_ranks: one world of 4; a case on fewer ranks runs on the first
+# ones), under deterministic algorithms.  Each case: (model, mesh (data,
+# model, residue), execution of its linears, steps, B (None: the model's));
+# the one-process step it is held to runs grad_accum = D on `kernel`.  12b
+# takes one step at B 1: each of its 192 GEMMs all-reduces its float64
+# partial planes over gloo (9.1 GiB a step at B 8, 17.6 s; 3.3 GiB at B 2,
+# 11.4-13.7 s).
+MESH_TRAIN_CASES = (
+    ("mamba2", (2, 1, 1), "kernel", 2, None), ("mamba2", (1, 2, 1), "kernel", 2, None),
+    ("mamba2", (1, 1, 2), "sharded", 1, 1), ("mamba2", (2, 2, 1), "kernel", 2, None),
+    ("starcoder2", (2, 2, 1), "kernel", 1, None),
+)
+MESH_WORLD = 4
+MESH_TRAIN_LINEARS = {"mamba2": TRAIN_LINEARS, "starcoder2": TRAIN_WIDE_LINEARS}
+COMPRESS_RANKS = (2, 4)  # 12d: error_feedback_psum over the first 2, then all 4 ranks
+COMPRESS_SHAPE = (4096, 4096)  # one float32 grad leaf of 16.8 M values a rank
+PIPE_MICRO = 4  # 12d: GPipe microbatches (tests/test_pipeline.py's)
+PIPE_LOSS_RTOL = 1e-5  # 12d: the pipelined loss against the sequential one, relative
+# 12c: the train CLI on mamba2-130m as published: 3 steps on the mesh; the
+# checkpoint its resume reads comes from one process (the CLI's
+# ckpt_every, max(10, steps // 4), saves nothing before step 10), which
+# takes 10 steps while the mesh run runs; the resume goes to step 12
+MESH_CLI = ["--arch", "mamba2-130m", "--full", "--backend", "ozaki2_f32", "--execution", "kernel"]
+MESH_CLI_STEPS = (3, 10, 12)
+# the fingerprint of a tensor's bits: FINGERPRINT_WAYS sums, each of every
+# 32- (or 16-, 8-) bit word times a weight drawn from a seeded generator,
+# in exact integer arithmetic modulo the prime 2^31 - 1, a chunk of words
+# at a time; two tensors whose bits differ anywhere agree in one way with
+# chance 2^-31
+FINGERPRINT_PRIME, FINGERPRINT_WAYS, FINGERPRINT_CHUNK = 2**31 - 1, 4, 1 << 24
+
+
+def mesh_train_model(which, GemmPolicy, execution="kernel", batch=None):
+    """12a's models: mamba2-130m as published (the train CLI's B 8 x S
+    256) or starcoder2-3b at full width, 2 of 30 layers (9c's B 4 x S
+    256), float32, every linear on `execution`; `batch` replaces B.
+    (config, data config)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+
+    pol = GemmPolicy(backend="ozaki2_f32", execution=execution)
+    if which == "mamba2":
+        cfg = get_config(TRAIN_ARCH, dtype="float32", gemm_policy=pol)
+        return cfg, DataConfig(cfg.vocab, TRAIN_S, batch or TRAIN_B, seed=0)
+    cfg = get_config(TRAIN_WIDE_ARCH, dtype="float32", n_layers=TRAIN_WIDE_LAYERS, gemm_policy=pol)
+    return cfg, DataConfig(cfg.vocab, TRAIN_WIDE_S, batch or TRAIN_WIDE_B, seed=0)
+
+
+def fingerprint(t: torch.Tensor) -> list:
+    """The fingerprint of `t`'s bits (FINGERPRINT_WAYS residues mod
+    FINGERPRINT_PRIME), computed where `t` lies: the same in every process
+    for the same bits, a zero's sign included."""
+    words = t.detach().reshape(-1).contiguous().view(
+        {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int32}[t.element_size()])
+    out = []
+    for way in range(FINGERPRINT_WAYS):
+        gen = torch.Generator(device=words.device).manual_seed(SEED + 12 + way)
+        acc = 0
+        for lo in range(0, words.numel(), FINGERPRINT_CHUNK):
+            x = words[lo:lo + FINGERPRINT_CHUNK].to(torch.int64).remainder(FINGERPRINT_PRIME)
+            w = torch.randint(1, FINGERPRINT_PRIME, x.shape, generator=gen, device=x.device, dtype=torch.int64)
+            acc += int(torch.remainder(x * w, FINGERPRINT_PRIME).sum())  # each product < 2^62
+        out.append(acc % FINGERPRINT_PRIME)
+    return out
+
+
+def state_fingerprint(tree) -> list:
+    """Each leaf's `fingerprint`, in leaf order."""
+    from repro_torch.tree import tree_leaves
+
+    return [fingerprint(t) for t in tree_leaves(tree)]
+
+
+def mesh_train_references(dev, GemmPolicy):
+    """12a's one-process steps on the card (deterministic algorithms): for
+    each (model, grad_accum, B) a case needs, as many steps as its longest
+    case: every step's loss and time, and the state's fingerprint after
+    each step a case ends at."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import init_state
+
+    ends = {}
+    for which, shape, _, steps, rows in MESH_TRAIN_CASES:
+        ends.setdefault((which, shape[0], rows), set()).add(steps)
+    refs = {}
+    for (which, accum, rows), stops in ends.items():
+        cfg, data = mesh_train_model(which, GemmPolicy, batch=rows)
+        model, src = Model(cfg), SyntheticLM(data)
+        step, _ = make_train_step(model, AdamWConfig(**TRAIN_OPT), grad_accum=accum)
+        ms, losses, prints = [], [], {}
+        with deterministic():
+            params, state = init_state(model, AdamWConfig(**TRAIN_OPT), torch.Generator().manual_seed(0), dev)
+            for i in range(max(stops)):
+                batch = {k: torch.from_numpy(v).to(dev) for k, v in src.batch(i).items()}
+                _sync(dev)
+                t = time.perf_counter()
+                params, state, met = step(params, state, batch)
+                losses.append(float(met["loss"]).hex())
+                _sync(dev)
+                ms.append((time.perf_counter() - t) * 1e3)
+                if i + 1 in stops:
+                    prints[i + 1] = state_fingerprint({"params": params, "opt": state})
+        refs[which, accum, rows] = {"prints": prints, "losses": losses, "ms": ms}
+        del params, state, step, model
+        torch.cuda.empty_cache()
+    return refs
+
+
+def compress_inputs(rank, dev):
+    """12d's grad and error buffer of `rank`, drawn on the card."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1000 + rank)
+    g = torch.randn(COMPRESS_SHAPE, generator=gen, device=dev) * float(rank + 1)
+    return g, torch.randn(COMPRESS_SHAPE, generator=gen, device=dev) * 1e-2
+
+
+def compress_formula(world, dev):
+    """The error-feedback mean of `world` ranks' grads in one process: one
+    scale (the ranks' maximum), each grad quantized to it, the int32 sum,
+    its mean; (fingerprint of the mean, of each rank's new error)."""
+    from repro_torch.distributed.compression import quantize_int8
+
+    g32 = [g.float() + e for g, e in (compress_inputs(r, dev) for r in range(world))]
+    smax = torch.stack([quantize_int8(x)[1] for x in g32]).max()
+    q = [torch.clamp(torch.round(x / smax), -127, 127).to(torch.int32) for x in g32]
+    errs = [x - qi.to(torch.float32) * smax for x, qi in zip(g32, q)]
+    total = q[0]
+    for qi in q[1:]:
+        total = total + qi
+    mean = total.to(torch.float32) * smax / torch.tensor(float(world), device=dev)
+    return state_fingerprint(mean)[0], state_fingerprint(errs)
+
+
+def mesh_training(dev, GemmPolicy, tmp):
+    """Phases 12a, 12b and 12d: the one-process references here, then a
+    world of 4 ranks: each mesh case's steps on its first ranks,
+    compression over 2 and 4, the pipeline over 2.  Every rank's gathered
+    state and losses bitwise the reference's (equal fingerprints).
+    Returns rank 0's launches of the cases."""
+    refs = mesh_train_references(dev, GemmPolicy)
+    t0 = time.perf_counter()
+    results = run_ranks(["mesh_train", "compress", "pipeline"], MESH_WORLD, tmp, dev)
+    print(f"  {MESH_WORLD} ranks: {time.perf_counter() - t0:.1f} s with their start", flush=True)
+    launches = {}
+    for rank, res in enumerate(results["mesh_train"]):
+        for line in res["cases"]:
+            ref = refs[line["model"], line["mesh"][0], line["batch"]]
+            want = ref["prints"][line["steps"]]
+            if line["prints"] != want or line["losses"] != ref["losses"][:line["steps"]]:
+                bad = [i for i, (a, b) in enumerate(zip(line["prints"], want)) if a != b]
+                raise AssertionError(f"12a rank {rank}, {line['model']} on {tuple(line['mesh'])} "
+                                     f"{line['execution']}: losses {line['losses']} against {ref['losses']}, "
+                                     f"leaves differing {bad[:10]} of {len(want)}")
+            check_train_launches(line["launches"], train_expect("kernel"), MESH_TRAIN_LINEARS[line["model"]],
+                                 line["steps"], f"12a rank {rank} {line['model']} on {tuple(line['mesh'])}")
+    for line in results["mesh_train"][0]["cases"]:
+        ref = refs[line["model"], line["mesh"][0], line["batch"]]
+        phase = "12b" if line["execution"] == "sharded" else "12a"
+        print(f"  {phase} {line['model']} on mesh {tuple(line['mesh'])} ({int(np.prod(line['mesh']))} ranks, "
+              f"{line['backend']}, {line['execution']}, B {line['rows']}): {line['steps']} steps, losses "
+              f"{' '.join(f'{float.fromhex(x):.6f}' for x in line['losses'])}; step ms "
+              f"{' '.join(f'{x:.1f}' for x in line['ms'])} (one process, grad_accum {line['mesh'][0]}: "
+              f"{' '.join(f'{x:.1f}' for x in ref['ms'][:line['steps']])}); a step "
+              f"{line['gathered_bytes'] / 2**20:.1f} MiB gathered by broadcasts and "
+              f"{line['reduced_bytes'] / 2**20:.1f} MiB all-reduced, collectives {line['collective_ms']:.1f} ms "
+              f"({100 * line['collective_ms'] / line['ms'][-1]:.1f} % of the last step); every rank's "
+              f"{len(line['prints'])} state leaves and losses bitwise the one-process step", flush=True)
+        add_counts(launches, line["launches"])
+    for world in COMPRESS_RANKS:
+        mean, errs = compress_formula(world, dev)
+        for rank, res in enumerate(results["compress"][:world]):
+            line = res[str(world)]
+            if line["mean"] != mean or line["err"] != errs[rank]:
+                raise AssertionError(f"12d compression, rank {rank} of {world}: differs from the one-process formula")
+        print(f"  12d error_feedback_psum over {world} ranks, {COMPRESS_SHAPE} float32 a rank: "
+              f"{results['compress'][0][str(world)]['ms']:.1f} ms; every rank's mean and new error bitwise the "
+              f"one-process formula", flush=True)
+    for rank, res in enumerate(results["pipeline"][:2]):
+        if not res["ok"]:
+            raise AssertionError(f"12d pipeline rank {rank}: {res}")
+        print(f"  12d pipeline_loss, {TRAIN_WIDE_ARCH} at full width, {TRAIN_WIDE_LAYERS} layers, pp = 2, "
+              f"{PIPE_MICRO} microbatches, rank {rank} (stage {res['stage']}): loss {res['loss']:.6f} against "
+              f"the sequential model's at the same microbatches {res['mb_loss']:.6f} ({res['loss_rel']:.2e} "
+              f"relative, bound {PIPE_LOSS_RTOL}), grads of its {res['leaves']} leaves within "
+              f"{res['worst']:.3f} of max(1e-5, 1e-3 max|g|); against the whole-batch model (loss "
+              f"{res['seq_loss']:.6f}, {res['full_loss_rel']:.2e} relative) the grads read {res['full_worst']:.2f} "
+              f"of that bound, the microbatched sequential model's own {res['mb_full_worst']:.2f}; loss and "
+              f"grads {res['pipe_ms']:.1f} ms (sequential {res['mb_ms']:.1f} microbatched, {res['seq_ms']:.1f} "
+              f"whole)", flush=True)
+    return launches
+
+
+def rank_mesh_train(dev, tmp):
+    """Rank side of 12a and 12b: every case (on the first ranks of the
+    world; the others build its mesh and wait), each step timed, its
+    collectives logged and timed; then the state gathered and
+    fingerprinted."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    import repro_torch.kernels as kernels
+    from repro_torch import GemmPolicy
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import sharded_gemm
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import init_state
+    from repro_torch.tree import tree_map
+
+    coll = [0.0]
+    real = sharded_gemm.collective
+
+    def timed(*args, **kwargs):
+        _sync(dev)
+        t = time.perf_counter()
+        out = real(*args, **kwargs)
+        _sync(dev)
+        coll[0] += time.perf_counter() - t
+        return out
+
+    # every rank's first CUDA work at once, before any case (a rank's first
+    # case otherwise pays it, and the cases of 4 ranks wait for the last 2):
+    # reduced mamba2-130m's loss and grads on `kernel` (the emulated
+    # products, the conv, the scan, the embedding's backward)
+    from repro_torch.configs import get_reduced
+    from repro_torch.train.step import loss_and_grads
+
+    warm = Model(get_reduced(TRAIN_ARCH, dtype="float32", gemm_policy=GemmPolicy(backend="ozaki2_f32",
+                                                                                  execution="kernel")))
+    with deterministic():
+        loss_and_grads(warm, warm.init(torch.Generator().manual_seed(0), device=dev),
+                       {"tokens": torch.zeros((2, 32), dtype=torch.int32, device=dev)})
+    _sync(dev)
+    lines = []
+    for which, shape, execution, steps, rows in MESH_TRAIN_CASES:
+        mesh = DeviceMesh(dev.type, torch.arange(int(np.prod(shape))).reshape(shape), mesh_dim_names=SHARD_NAMES)
+        if mesh.get_coordinate() is None:
+            continue
+        cfg, data = mesh_train_model(which, GemmPolicy, execution, rows)
+        model, src = Model(cfg), SyntheticLM(data)
+        step, sh = make_train_step(model, AdamWConfig(**TRAIN_OPT), mesh=mesh)
+        ms, losses = [], []
+        kernels.reset_launches()
+        sharded_gemm.collective = timed
+        try:
+            with deterministic():
+                params, state = init_state(model, AdamWConfig(**TRAIN_OPT), torch.Generator().manual_seed(0), dev, sh)
+                for i in range(steps):
+                    batch = {k: sh["batch"].place(torch.from_numpy(v)) for k, v in src.batch(i).items()}
+                    coll[0] = 0.0
+                    with sharded_gemm.CollectiveLog() as log:
+                        _sync(dev)
+                        t = time.perf_counter()
+                        params, state, met = step(params, state, batch)
+                        losses.append(float(met["loss"]).hex())
+                        _sync(dev)
+                        ms.append((time.perf_counter() - t) * 1e3)
+                counts = nonzero_counts(kernels)
+        finally:
+            sharded_gemm.collective = real
+        prints = state_fingerprint(tree_map(sharded_gemm.full_tensor, {"params": params, "opt": state}))
+        lines.append({"model": which, "mesh": shape, "execution": execution, "steps": steps, "batch": rows,
+                      "rows": data.global_batch, "ms": ms, "losses": losses, "prints": prints, "launches": counts,
+                      "backend": dist.get_backend(), "collective_ms": coll[0] * 1e3,
+                      "gathered_bytes": sum(int(np.prod(s)) * dt.itemsize for op, dt, s, _ in log.calls
+                                            if op == "broadcast"),
+                      "reduced_bytes": sum(int(np.prod(s)) * dt.itemsize for op, dt, s, _ in log.calls
+                                           if op != "broadcast")})
+        del params, state, step, model
+        torch.cuda.empty_cache()
+    return {"cases": lines}
+
+
+def rank_compress(dev, tmp):
+    """Rank side of 12d's compression: `error_feedback_psum` of this rank's
+    grad over a 'data' mesh of the first 2, then all ranks, timed; the
+    fingerprints of its outputs."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.distributed.compression import error_feedback_psum
+
+    out = {}
+    for world in COMPRESS_RANKS:
+        mesh = DeviceMesh(dev.type, torch.arange(world), mesh_dim_names=("data",))
+        if mesh.get_coordinate() is None:
+            continue
+        g, e = compress_inputs(dist.get_rank(), dev)
+        error_feedback_psum(g, e, mesh, "data")  # warm-up
+        _sync(dev)
+        t = time.perf_counter()
+        mean, err = error_feedback_psum(g, e, mesh, "data")
+        _sync(dev)
+        out[world] = {"ms": (time.perf_counter() - t) * 1e3, "mean": state_fingerprint(mean)[0],
+                      "err": state_fingerprint(err)[0]}
+    return out
+
+
+def microbatched_loss(model, params, batch, n_micro):
+    """`pipeline_loss`'s computation with its stages in one process: the
+    whole layer stack run on each microbatch in turn, at the pipeline's
+    shapes (`pipeline._stage_fn`), then the same norm, head and mean
+    cross entropy over the whole batch."""
+    from repro_torch.distributed.pipeline import _stage_fn
+    from repro_torch.models.layers import apply_norm
+
+    cfg = model.cfg
+    h, positions = model._embed_inputs(params, batch)
+    b = h.shape[0]
+    mb = h.reshape((n_micro, b // n_micro) + tuple(h.shape[1:]))
+    y = torch.stack([_stage_fn(cfg, params["groups"][0], mb[m], positions[: b // n_micro]) for m in range(n_micro)])
+    logits = model._head(params, apply_norm(cfg.norm, params["final_norm"], y.reshape(h.shape)))
+    tokens = batch["tokens"]
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    mask = torch.cat([torch.ones_like(tokens[:, 1:], dtype=torch.float32),
+                      torch.zeros_like(tokens[:, :1], dtype=torch.float32)], dim=1)
+    gold = torch.take_along_dim(logits, targets.long()[..., None], dim=-1)[..., 0]
+    return torch.sum((torch.logsumexp(logits, dim=-1) - gold) * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def rank_pipeline(dev, tmp):
+    """Rank side of 12d's pipeline: starcoder2-3b at full width, 2 layers,
+    native float32, on a (2,) 'pp' mesh: `pipeline_loss` and its grads,
+    then in this process the sequential model's at the pipeline's
+    microbatch shapes (`microbatched_loss`) and on the whole batch
+    (`Model.loss`).  The rank's blocks (the group leaves' own stage block;
+    on stage 0 the other leaves too) are held against the first, by
+    tests/test_pipeline.py's bounds; against the second they are read,
+    beside that of the microbatched sequential model itself: at this
+    random init the residual stream grows to ~1e3, the attention logits
+    saturate, and cuBLAS's other sums at the whole batch's shapes move
+    the q/k grads by percents."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import NATIVE
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.distributed.pipeline import pipeline_loss
+    from repro_torch.models import Model
+    from repro_torch.tree import leaves_with_paths, unflatten
+
+    cfg = get_config(TRAIN_WIDE_ARCH, dtype="float32", n_layers=TRAIN_WIDE_LAYERS, gemm_policy=NATIVE, remat=False)
+    model = Model(cfg)
+    mesh = DeviceMesh(dev.type, torch.arange(2), mesh_dim_names=("pp",))
+    if mesh.get_coordinate() is None:
+        return None
+    stage = mesh.get_local_rank("pp")
+    params = model.init(torch.Generator().manual_seed(0), device=dev)
+    batch = {"tokens": torch.from_numpy(SyntheticLM(DataConfig(cfg.vocab, TRAIN_WIDE_S, TRAIN_WIDE_B, seed=0))
+                                        .batch(0)["tokens"]).to(dev)}
+    paths = [p for p, _ in leaves_with_paths(params)]
+
+    def loss_and_grads(fn):
+        leaves = [t.detach().requires_grad_(True) for _, t in leaves_with_paths(params)]
+        _sync(dev)
+        t0 = time.perf_counter()
+        loss = fn(unflatten(params, leaves))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        _sync(dev)
+        return float(loss.detach()), [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)], \
+            (time.perf_counter() - t0) * 1e3
+
+    def worst(got, want):
+        """The largest of each held leaf's max|got - want| over its bound."""
+        per, out = cfg.n_layers // 2, 0.0
+        for path, g, w in zip(paths, got, want):
+            if path[0] == "groups":
+                g, w = g[stage * per:(stage + 1) * per], w[stage * per:(stage + 1) * per]
+            elif stage != 0:
+                continue
+            out = max(out, float((g - w).abs().max()) / max(1e-5, 1e-3 * float(w.abs().max())))
+        return out
+
+    with deterministic():
+        loss, grads, pipe_ms = loss_and_grads(lambda p: pipeline_loss(model, p, batch, mesh, "pp", PIPE_MICRO))
+        mb_loss, mb_grads, mb_ms = loss_and_grads(lambda p: microbatched_loss(model, p, batch, PIPE_MICRO))
+        seq_loss, seq_grads, seq_ms = loss_and_grads(lambda p: model.loss(p, batch)[0])
+    loss_rel = abs(loss - mb_loss) / abs(mb_loss)
+    held = worst(grads, mb_grads)
+    return {"stage": stage, "loss": loss, "mb_loss": mb_loss, "seq_loss": seq_loss, "loss_rel": loss_rel,
+            "worst": held, "leaves": sum(1 for p in paths if p[0] == "groups" or stage == 0),
+            "full_worst": worst(grads, seq_grads), "mb_full_worst": worst(mb_grads, seq_grads),
+            "full_loss_rel": abs(loss - seq_loss) / abs(seq_loss), "pipe_ms": pipe_ms, "mb_ms": mb_ms,
+            "seq_ms": seq_ms, "ok": loss_rel <= PIPE_LOSS_RTOL and held <= 1.0}
+
+
+def cli_mesh_record(argv):
+    """The train CLI's main on `argv` under deterministic algorithms: (exit
+    code, {"losses": every step's loss, "restored": for each sharded
+    restore, the fingerprints of the restored state gathered whole})."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.distributed.sharded_gemm import full_tensor
+    from repro_torch.launch import train as cli
+    from repro_torch.tree import tree_map
+
+    losses, restores = [], []
+    real_loop, real_restore = cli.train_loop, Checkpointer.restore
+
+    def recording(*args, **kwargs):
+        params, hist = real_loop(*args, **kwargs)
+        losses.extend(hist)
+        return params, hist
+
+    def restore(self, step, like, device=None, shardings=None):
+        out = real_restore(self, step, like, device, shardings)
+        if shardings is not None:
+            restores.append(state_fingerprint(tree_map(full_tensor, out)))
+        return out
+
+    cli.train_loop, Checkpointer.restore = recording, restore
+    try:
+        with deterministic():
+            return cli.main(argv), {"losses": losses, "restored": restores}
+    finally:
+        cli.train_loop, Checkpointer.restore = real_loop, real_restore
+
+
+def mesh_train_cli(dev, tmp):
+    """Phase 12c: `--mesh 2x1` under `python -m torch.distributed.run
+    --nproc-per-node 2` for 3 steps, each rank's losses bitwise one
+    process's with --grad-accum 2; meanwhile one process writes a
+    checkpoint at step 10 into a directory; then `--mesh 1x2` resumes from
+    it to step 12: the restored state gathered bitwise the checkpoint's
+    arrays, the losses bitwise one process resumed from a copy of it with
+    --grad-accum 1.  Each one-process run goes here while the launcher's
+    ranks run."""
+    import shutil
+
+    mesh_steps, saved_at, then = MESH_CLI_STEPS
+    ckdir, one = tmp / "mesh_cli", tmp / "mesh_cli_one"
+    runs = ((["--mesh", "2x1", "--steps", str(mesh_steps)], ["--grad-accum", "2", "--steps", str(mesh_steps)]),
+            (["--mesh", "1x2", "--steps", str(then), "--ckpt-dir", str(ckdir)],
+             ["--steps", str(then), "--ckpt-dir", str(one)]))
+    saved = None
+    for i, (mesh_flags, one_flags) in enumerate(runs):
+        argv = MESH_CLI + mesh_flags + ["--device", dev.type]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+                                 "2", __file__, "--rank-task", "cli_mesh_train", str(tmp), dev.type, *argv],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc, want = cli_mesh_record(MESH_CLI + one_flags + ["--device", dev.type])
+                if i == 0:  # the checkpoint the resume reads
+                    cli_mesh_record(MESH_CLI + ["--steps", str(saved_at), "--ckpt-dir", str(ckdir),
+                                                "--device", dev.type])
+                    shutil.copytree(ckdir, one)
+                    with np.load(ckdir / f"step_{saved_at}" / "arrays.npz") as z:
+                        saved = state_fingerprint([torch.from_numpy(z[k]).to(dev) for k in z.files])
+            out, err = proc.communicate(timeout=RANK_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        both_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"torch.distributed.run of the train CLI {' '.join(mesh_flags)} exited "
+                                 f"{proc.returncode}:\n{out[-4000:]}\n{err[-6000:]}")
+        got = [json.loads((tmp / f"cli_mesh_train.rank{rank}.json").read_text()) for rank in range(2)]
+        printed = [line for line in out.splitlines() if line.startswith(("[mamba2-130m]", "[resume]"))]
+        restored = [g["restored"] for g in got]
+        if (rc != 0 or any(g["losses"] != want["losses"] for g in got) or not want["losses"]
+                or restored != [[saved] * i] * 2 or len(printed) != 1 + i):
+            raise AssertionError(f"12c {' '.join(mesh_flags)}: ranks {got} against one process {want}; printed "
+                                 f"{printed}")
+        print(f"  12c python -m torch.distributed.run --nproc-per-node 2 -m repro_torch.launch.train "
+              f"{' '.join(argv)}: exit 0, {printed} from rank 0 alone"
+              f"{f', the state it restored gathered bitwise the {len(saved)} checkpoint arrays on both ranks' if i else ''}"
+              f"; both ranks' {len(want['losses'])} losses ({want['losses'][0]:.6f} ... {want['losses'][-1]:.6f}) "
+              f"bitwise one process's with {' '.join(one_flags)}"
+              f"{f' (and a one-process run of {saved_at} steps wrote the checkpoint)' if i == 0 else ''} "
+              f"({both_s:.1f} s)", flush=True)
+
+
 def rank_main(tasks, tmp, device_type, argv) -> int:
     """A rank of phase 10 (this script started with --rank-task)."""
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
     tmp = pathlib.Path(tmp)
     rank = int(os.environ["RANK"])
     if tasks.startswith("cli_"):  # the CLI joins the launcher's group itself
-        rc, rec = cli_record(tasks[4:], argv)
+        rc, rec = cli_mesh_record(argv) if tasks == "cli_mesh_train" else cli_record(tasks[4:], argv)
         (tmp / f"{tasks}.rank{rank}.json").write_text(json.dumps(rec))
         return rc
     import torch.distributed as dist
@@ -3689,7 +4197,8 @@ def rank_main(tasks, tmp, device_type, argv) -> int:
     dev, _ = init_world(torch.device(device_type))
     try:
         for task in tasks.split(","):
-            out = {"gemms": rank_gemms, "serving": rank_serving}[task](dev, tmp)
+            out = {"gemms": rank_gemms, "serving": rank_serving, "mesh_train": rank_mesh_train,
+                   "compress": rank_compress, "pipeline": rank_pipeline}[task](dev, tmp)
             (tmp / f"{task}.rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
@@ -3861,6 +4370,22 @@ def main() -> int:
     print("phase 11: the static analysis (11a the smoke matrix, 11b k = 2^17 + 5, 11c launches by torch.profiler, "
           "11d a negative control)", flush=True)
     analysis_phase(dev, GemmPolicy, linalg)
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    mesh_tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        print("phase 12a/b/d: the parameter-sharded training mesh, ranks on the card over gloo (2 and 4); 12d "
+              "compression and the pipeline", flush=True)
+        mesh_counts = mesh_training(dev, GemmPolicy, mesh_tmp)
+        print("phase 12c: the train CLI with --mesh under torch.distributed.run, 2 ranks, and its resume on "
+              "another mesh", flush=True)
+        mesh_train_cli(dev, mesh_tmp)
+    finally:
+        import shutil
+
+        shutil.rmtree(mesh_tmp, ignore_errors=True)
+    print(f"  phase 12 launches (rank 0): {mesh_counts}", flush=True)
+    print(f"  phase 12 took {time.perf_counter() - t12:.1f} s", flush=True)
 
     launches = {"kernel": counts, "fused": fused_counts, "fp8": fp8_counts, "tune": tune_counts,
                 "attention": attention_counts}

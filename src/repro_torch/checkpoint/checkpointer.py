@@ -173,17 +173,23 @@ class Checkpointer:
         for s in steps[: -self.keep]:
             shutil.rmtree(os.path.join(self.directory, f"step_{s}"), True)
 
-    def restore(self, step: int, like, device=None):
+    def restore(self, step: int, like, device=None, shardings=None):
         """Load `step` into the structure of `like` (a tree of tensors, meta
         tensors or anything else at the leaves; only its structure and its
         prepared operands' metadata are read), as tensors on `device`
-        (None: the card)."""
-        device = resolve_device(device)
+        (None: the card).  With `shardings` (a tree like `like` of
+        `distributed.sharding.NamedSharding`), each leaf is a `DTensor`
+        holding this rank's block of the saved array, on the mesh's
+        device; only the block leaves the host."""
         path = os.path.join(self.directory, f"step_{step}")
         dtypes = self.meta(step).get("_dtypes", {})
+        host = torch.device("cpu") if shardings is not None else resolve_device(device)
         with np.load(os.path.join(path, "arrays.npz")) as z:
-            flat = {k: _to_tensor(z[k], dtypes.get(k), device) for k, _ in _flatten(like)}
-        return _unflatten_into(like, flat)
+            flat = {k: _to_tensor(z[k], dtypes.get(k), host) for k, _ in _flatten(like)}
+        tree = _unflatten_into(like, flat)
+        if shardings is not None:
+            tree = tree_map(lambda t, s: s.place(t), tree, shardings)
+        return tree
 
     def meta(self, step: int) -> dict:
         with open(os.path.join(self.directory, f"step_{step}", "meta.json")) as f:

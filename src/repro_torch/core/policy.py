@@ -54,10 +54,6 @@ Execution = Literal["reference", "kernel", "per_modulus_kernel", "sharded", "fp8
 
 EXECUTIONS = ("reference", "kernel", "per_modulus_kernel", "sharded", "fp8", "fused")
 
-# the ROADMAP (queue 1) item that brings meshes whose data or model dims
-# shard parameters and activations
-MESH_ITEM = "item 11b, the parameter-sharded training mesh"
-
 _COMPUTE_DTYPES = {
     "native": None,
     "ozaki2_f32": torch.float32,
@@ -73,10 +69,6 @@ BACKEND_FOR_DTYPE = {
     "complex64": "ozaki2_c64",
     "complex128": "ozaki2_c128",
 }
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, {item})")
 
 
 _MESH_STATE = threading.local()

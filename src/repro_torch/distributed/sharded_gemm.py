@@ -26,7 +26,8 @@ What is communicated, through `collective` alone:
    the n dim (row maxima) and the m dim (column maxima);
 3. the output blocks, gathered over m and n by a broadcast from each
    block's owner, in the output dtype (never by a sum, which would turn
-   -0.0 into +0.0).
+   -0.0 into +0.0): `gather`, which `full_tensor` also runs to make a
+   `DTensor` of the training mesh whole.
 
 No int8 array is communicated.  Fast mode's scale exponents are the whole
 product's, computed from the full operands every rank holds and sliced:
@@ -49,7 +50,7 @@ from ..core.executor import execute_plan, scale_exponents
 from ..core.moduli import make_crt_context
 from .sharding import GemmShardAxes, dim_size, local_block, plane_chunk, residue_plane_specs, resolve_gemm_axes
 
-__all__ = ["CollectiveLog", "ShardedBackend", "collective"]
+__all__ = ["CollectiveLog", "ShardedBackend", "collective", "full_tensor", "gather"]
 
 _LOGS: list["CollectiveLog"] = []
 
@@ -234,16 +235,37 @@ class ShardedBackend:
         y = execute_plan(plan, local_block(a, specs["a"], self.mesh), local_block(b, specs["b"], self.mesh),
                          worker)
         for d, name in reversed(list(enumerate(specs["out"]))):
-            y = self._gather(y, d, name)
+            y = gather(y, d, self.mesh, name)
         return y
 
-    def _gather(self, y, d, name):
-        """The whole of `y` along dim `d` from its blocks over `name`."""
-        size = dim_size(self.mesh, name)
-        if size == 1:
-            return y
-        y = y.contiguous()
-        me = self.mesh.get_local_rank(name)
-        blocks = [collective("broadcast", y if j == me else torch.empty_like(y), self.mesh, name, src=j)
-                  for j in range(size)]
-        return torch.cat(blocks, dim=d)
+
+def gather(y: torch.Tensor, d: int, mesh, name: str | None) -> torch.Tensor:
+    """The whole of `y` along dim `d` from the equal blocks the ranks of the
+    mesh dim `name` hold, in their order: one broadcast from each block's
+    owner (bits kept, -0.0 included)."""
+    size = dim_size(mesh, name)
+    if size == 1:
+        return y
+    y = y.contiguous()
+    me = mesh.get_local_rank(name)
+    blocks = [collective("broadcast", y if j == me else torch.empty_like(y), mesh, name, src=j)
+              for j in range(size)]
+    return torch.cat(blocks, dim=d)
+
+
+def full_tensor(x) -> torch.Tensor:
+    """The whole tensor of a `DTensor` (a plain tensor as it is): each dim
+    split over mesh dims gathered by `gather`, the innermost mesh dim
+    first."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    t = x.to_local()
+    for i in reversed(range(x.device_mesh.ndim)):
+        p = x.placements[i]
+        if p.is_shard():
+            t = gather(t, p.dim, x.device_mesh, x.device_mesh.mesh_dim_names[i])
+        elif not p.is_replicate():
+            raise ValueError(f"placement {p} of a {tuple(x.shape)} DTensor: only Shard and Replicate are gathered")
+    return t

@@ -1,7 +1,7 @@
 """Training launcher of the port.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \\
-        --steps 100 --batch 8 --seq 256 [--ckpt-dir DIR] \\
+        --steps 100 --batch 8 --seq 256 [--mesh DxM] [--ckpt-dir DIR] \\
         [--backend ozaki2_f32] [--execution kernel] [--mode accu] \\
         [--formulation auto] [--n-block auto] [--rtol 1e-6] \\
         [--seq-shard] [--vocab-chunk N] [--full] [--device cpu]
@@ -17,18 +17,24 @@ published one) from random weights (`torch.Generator` seed 0) on the
 synthetic data, resuming from ``--ckpt-dir`` when it holds a
 checkpoint, and prints ``[arch] loss first -> last``.
 
-``--execution sharded`` spreads every emulated linear of the step over a
-(1, 1, R) mesh of the run's ranks, R = ``--residue`` (default: every
-rank), each rank holding the whole model and batch:
+``--mesh DxM`` trains on a (data, model) mesh of the run's ranks, D x M
+of them (`train.step`): the params split over 'model' by the reference's
+rules, the optimizer state also over 'data' (ZeRO-1), the global batch's
+rows over 'data'.  Its losses are bitwise those of one process with
+``--grad-accum D`` (with ``--grad-accum G``: those of ``--grad-accum
+D x G`` within rounding).  ``--residue R`` appends a
+residue dim; ``--execution sharded`` then spreads every emulated linear
+of the step over the model and residue dims (without ``--mesh``: a
+(1, 1, R) mesh, R = ``--residue``, default every rank):
 
     python -m torch.distributed.run --nproc-per-node 2 -m repro_torch.launch.train \
-        --arch mamba2-130m --backend ozaki2_f32 --execution sharded --residue 2
+        --arch mamba2-130m --backend ozaki2_f32 --execution kernel --mesh 2x1
 
 Under the launcher rank 0 alone prints and saves; without one it runs a
-world of one.  ``--mesh DxM`` (parameters and batches sharded) raises
-(ROADMAP queue 1, item 11b); a ``--residue`` other than 1 on another
-execution is refused; ``--seq-shard`` sets the activation layout, which has
-no effect without that mesh.
+world of one.  The mesh must hold every rank of the run.  A ``--residue``
+other than 1 on another execution is refused; ``--seq-shard`` is the
+reference's activation layout hint, which changes no result (as its
+`act_pspec` changes none there).
 """
 from __future__ import annotations
 
@@ -39,7 +45,7 @@ import torch.distributed as dist
 
 from ..configs import ARCHS, get_config, get_reduced
 from ..core.executor import resolve_device
-from ..core.policy import MESH_ITEM, GemmPolicy, _not_ported
+from ..core.policy import GemmPolicy
 from ..data import DataConfig
 from ..models import Model
 from ..optim import AdamWConfig
@@ -65,7 +71,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--grad-accum", type=int, default=1)
-    ap.add_argument("--mesh", default=None, help="DxM (a parameter-sharded mesh: not ported, raises)")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM: a (data, model) training mesh of the run's D x M ranks (params over model, "
+                         "optimizer state also over data, batch rows over data)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--backend", default="native",
                     choices=["native", "ozaki2_f32", "ozaki2_f64", "ozaki2_c64", "ozaki2_c128"])
@@ -74,8 +82,8 @@ def main(argv=None) -> int:
                     help="residue backend running the emulation plan (fp8: the e4m3 digit-GEMM "
                          "engine; fused: the one-launch megakernel; sharded: over the run's ranks)")
     ap.add_argument("--residue", type=int, default=1,
-                    help="residue mesh-axis size of the sharded execution (default 1: every rank "
-                         "of the run)")
+                    help="residue mesh-axis size of the sharded execution, appended to the --mesh "
+                         "layout (default 1; without --mesh: every rank of the run)")
     ap.add_argument("--mode", default="fast", choices=["fast", "accu", "auto"],
                     help="paper scaling mode; 'auto' picks the cheapest mode meeting --rtol per shape")
     ap.add_argument("--rtol", type=float, default=None,
@@ -87,7 +95,8 @@ def main(argv=None) -> int:
     ap.add_argument("--n-block", default=None, type=parse_n_block,
                     help="output-column blocking: an int or 'auto'")
     ap.add_argument("--seq-shard", action="store_true",
-                    help="the reference's sequence-sharded activation layout (no effect on one card)")
+                    help="the reference's sequence-sharded activation layout: a layout hint that changes "
+                         "no result")
     ap.add_argument("--vocab-chunk", type=int, default=None,
                     help="chunked-vocab cross entropy over slabs of this size")
     ap.add_argument("--device", default=None,
@@ -95,8 +104,6 @@ def main(argv=None) -> int:
                          "versions)")
     add_calibration_args(ap)
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise _not_ported(f"--mesh {args.mesh} (a parameter-sharded mesh)", MESH_ITEM)
     if args.residue != 1 and args.execution != "sharded":
         ap.error(f"--residue {args.residue} is the sharded execution's mesh axis; "
                  f"--execution {args.execution} has none")
@@ -105,10 +112,17 @@ def main(argv=None) -> int:
     if args.mode == "auto" and args.rtol is None:
         ap.error("--mode auto needs an accuracy target: pass --rtol")
     mesh, owned = None, False
-    if args.execution == "sharded" and args.backend != "native":
+    if args.mesh or (args.execution == "sharded" and args.backend != "native"):
+        dims = tuple(map(int, args.mesh.split("x"))) if args.mesh else (1, 1)
         device, owned = init_world(device)
-        mesh = make_host_mesh(1, 1, residue=args.residue if args.residue > 1 else dist.get_world_size(),
-                              device_type=device.type)
+        world = dist.get_world_size()
+        residue = args.residue if args.residue > 1 or args.mesh else world // (dims[0] * dims[1])
+        if dims[0] * dims[1] * residue != world:
+            if owned:
+                dist.destroy_process_group()
+            ap.error(f"--mesh {args.mesh or '1x1'} with --residue {residue} needs "
+                     f"{dims[0] * dims[1] * residue} ranks; the run has {world}")
+        mesh = make_host_mesh(*dims, residue=residue, device_type=device.type)
     try:
         return _train(args, device, mesh)
     finally:
@@ -126,7 +140,6 @@ def _train(args, device, mesh) -> int:
             formulation=args.formulation,
             n_block=args.n_block,
             execution=args.execution,
-            mesh=mesh,
             rtol=args.rtol,
         )
         over["dtype"] = "float32"

@@ -83,8 +83,16 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0, inplace: 
     if not inplace:
         params = tree_map(lambda p: p.detach().clone(), params)
         state = tree_map(lambda t: t.clone(), state)
+    return apply_update(params, grads, state, cfg, lr_scale, global_norm(grads))
+
+
+@torch.no_grad()
+def apply_update(params, grads, state, cfg: AdamWConfig, lr_scale, gnorm: torch.Tensor):
+    """`adamw_update`'s step given the grads' global norm, in place on
+    `params` and `state`.  Every op after the norm is elementwise, so a
+    block of each leaf (the training mesh's ZeRO-1 shard) updates to the
+    same bits as that block of the whole."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
     clip = torch.minimum(_const(1.0, gnorm), _const(cfg.grad_clip, gnorm) / torch.clamp_min(gnorm, 1e-9))
     b1c = 1.0 - cfg.b1 ** step.to(_F32)
     b2c = 1.0 - cfg.b2 ** step.to(_F32)

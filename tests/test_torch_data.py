@@ -109,14 +109,17 @@ def test_train_cli_runs_and_resumes(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,error", [
-    (["--mesh", "2x2"], (NotImplementedError, "item 11b")),
+    (["--mesh", "2x2"], (SystemExit, "2")),
+    (["--mesh", "1x1"], None),
     (["--execution", "sharded", "--backend", "ozaki2_f32"], None),
     (["--residue", "2"], (SystemExit, "2")),
-], ids=["mesh", "sharded", "residue"])
+], ids=["mesh", "mesh1x1", "sharded", "residue"])
 def test_train_cli_one_card_flags_raise(flags, error, capsys):
-    """Without a launcher: a parameter-sharded --mesh raises (ROADMAP item
-    11b); --execution sharded runs in a world of one (2 ranks:
-    test_torch_sharded_models); --residue without it is refused."""
+    """Without a launcher: a --mesh of more ranks than the run has (a world
+    of one) is refused, --mesh 1x1 trains on that world (4 ranks:
+    test_torch_mesh_train); --execution sharded runs in a world of one (2
+    ranks: test_torch_sharded_models); --residue without it is
+    refused."""
     if error is None:
         assert train_cli.main(CLI + ["--steps", "1"] + flags) == 0
         assert "[mamba2-130m] loss" in capsys.readouterr().out

@@ -65,6 +65,8 @@ def test_train_cli_sharded_like_kernel(pool):
 
 
 def test_train_step_refuses_a_parameter_mesh(pool):
-    """A mesh whose data dim is 2 would shard the parameters and the batch:
-    it raises, naming the ROADMAP item that brings it."""
-    assert all(pool.run(torch_ranks.train_step_mesh_refused))
+    """A policy pinned to a mesh whose data dim is 2 would mix the data
+    ranks' batch rows in its products: the mesh step refuses it.  The same
+    mesh with the policy unpinned trains (`tests/test_torch_mesh_train.py`)
+    and returns the reference's three sharding trees."""
+    assert pool.run(torch_ranks.train_step_mesh_refused) == [["batch", "opt", "params"]] * 2

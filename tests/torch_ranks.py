@@ -341,13 +341,194 @@ def train_cli(argv):
 
 
 def train_step_mesh_refused():
+    """A policy pinned to a mesh whose data dim is 2 is refused by the mesh
+    step (its products would mix the data ranks' rows); the same mesh with
+    the policy unpinned returns the step and its shardings."""
     import pytest
 
+    from repro_torch import GemmPolicy
     from repro_torch.configs import get_reduced
     from repro_torch.models import Model
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import make_train_step
 
-    with pytest.raises(NotImplementedError, match="11b"):
-        make_train_step(Model(get_reduced("mamba2-130m")), AdamWConfig(), mesh=mesh_of((2, 1, 1)))
+    mesh = mesh_of((2, 1, 1))
+    if not _on(mesh):
+        return None
+    pinned = GemmPolicy(backend="ozaki2_f32", execution="sharded", mesh=mesh)
+    with pytest.raises(ValueError, match="data ranks"):
+        make_train_step(Model(get_reduced("mamba2-130m", gemm_policy=pinned)), AdamWConfig(), mesh=mesh)
+    _, shardings = make_train_step(Model(get_reduced("mamba2-130m")), AdamWConfig(), mesh=mesh)
+    return sorted(shardings)
+
+
+# ------------------------------------------------------- the training mesh
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """The embedding's backward (`index_put_` with accumulation) in one
+    order, as the one-process runs it compares with."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _numpy(tree):
+    from repro_torch.distributed.sharded_gemm import full_tensor
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: full_tensor(t).detach().numpy(), tree)
+
+
+def mesh_step(shape, cfg, params, state, tokens, grad_accum=1, steps=1):
+    """`steps` train steps of `cfg` (a port `ModelConfig`) on the mesh,
+    from numpy params and optimizer state and the global batch `tokens`
+    (each step the same): the gathered params, state and every step's
+    metrics, as numpy."""
+    from repro_torch.distributed.elastic import reshard
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+
+    mesh = mesh_of(shape)
+    if not _on(mesh):
+        return None
+    step, sh = make_train_step(Model(cfg), AdamWConfig(lr=1e-3), mesh=mesh, grad_accum=grad_accum)
+    p = reshard(params_from_numpy(params, "cpu"), sh["params"])
+    o = reshard(params_from_numpy(state, "cpu"), sh["opt"])
+    metrics = []
+    with _deterministic():
+        for _ in range(steps):
+            p, o, met = step(p, o, {"tokens": sh["batch"].place(torch.from_numpy(tokens))})
+            metrics.append({k: np.asarray(v) for k, v in met.items()})
+    return _numpy(p), _numpy(o), metrics
+
+
+def mesh_init(shape, cfg):
+    """`init_state` with the mesh step's shardings: this rank's local
+    blocks, each leaf's spec and its placements."""
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.step import init_state, mesh_shardings
+    from repro_torch.tree import tree_leaves, tree_map
+
+    mesh = mesh_of(shape)
+    if not _on(mesh):
+        return None
+    model, opt = Model(cfg), AdamWConfig()
+    sh = mesh_shardings(model, opt, mesh)
+    params, state = init_state(model, opt, torch.Generator().manual_seed(0), "cpu", sh)
+    local = tree_map(lambda t: t.to_local().numpy(), {"params": params, "opt": state})
+    specs = [s.spec for s in tree_leaves({"params": sh["params"], "opt": sh["opt"]})]
+    return local, specs, mesh.get_coordinate()
+
+
+def save_params(shape, cfg, directory, step):
+    """The one-process init placed on the mesh, gathered, and saved by rank 0
+    at `step` (every rank gathers)."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed.sharded_gemm import full_tensor
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.step import init_state, mesh_shardings
+    from repro_torch.tree import tree_map
+
+    mesh = mesh_of(shape)
+    if not _on(mesh):
+        return None
+    model = Model(cfg)
+    params, _ = init_state(model, AdamWConfig(), torch.Generator().manual_seed(1), "cpu",
+                           mesh_shardings(model, AdamWConfig(), mesh))
+    whole = tree_map(full_tensor, params)
+    if dist.get_rank() == 0:
+        Checkpointer(directory).save(step, whole)
     return True
+
+
+def elastic(shape, cfg, directory):
+    """`elastic_restore` of the latest params under `directory` onto the
+    mesh: (step, this rank's local blocks, each leaf's placements as
+    strings, this rank's coordinate)."""
+    from repro_torch.distributed.elastic import elastic_restore
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_map
+
+    mesh = mesh_of(shape)
+    if not _on(mesh):
+        return None
+    step, params = elastic_restore(directory, Model(cfg).abstract_params(), mesh)
+    return (step, tree_map(lambda t: t.to_local().numpy(), params), tree_map(lambda t: str(t.placements), params),
+            mesh.get_coordinate())
+
+
+def mesh_train_loop(shape, cfg, data_fields, loop_fields):
+    """`train_loop` on the mesh: every step's loss and the gathered final
+    params (numpy); the log lines of rank 0."""
+    from repro_torch.data import DataConfig
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainLoopConfig, train_loop
+
+    mesh = mesh_of(shape)
+    if not _on(mesh):
+        return None
+    logs = []
+    with _deterministic():
+        params, hist = train_loop(Model(cfg), DataConfig(**data_fields), TrainLoopConfig(**loop_fields),
+                                  AdamWConfig(), mesh=mesh, log=logs.append, device="cpu")
+    return hist, _numpy(params), logs
+
+
+def compressed_mean(shape, names, dim, grads, errs, rounds=1):
+    """`error_feedback_psum` over the mesh dim `dim`: rank r's grad is
+    grads[r] (and its error errs[r]), numpy arrays or tensors; each round
+    after the first feeds a zero grad.  (mean, new error) tensors of every
+    round on this rank.  From zero errors `tree_error_feedback_psum` over
+    `init_error_buffers` must give the same first round, leaf by leaf."""
+    from repro_torch.distributed.compression import (
+        error_feedback_psum,
+        init_error_buffers,
+        tree_error_feedback_psum,
+    )
+
+    mesh = mesh_of(shape, names)
+    if not _on(mesh):
+        return None
+    r = mesh.get_local_rank(dim)
+    g, e = torch.as_tensor(grads[r]), torch.as_tensor(errs[r])
+    out = []
+    for i in range(rounds):
+        mean, e = error_feedback_psum(g if i == 0 else torch.zeros_like(g), e, mesh, dim)
+        out.append((mean, e))
+    if not torch.as_tensor(errs[r]).any():  # the tree form from fresh buffers: the same first round
+        tree = {"w": [g, g[:3]]}
+        means, news = tree_error_feedback_psum(tree, init_error_buffers(tree), mesh, dim)
+        first = error_feedback_psum(g[:3], torch.zeros(g[:3].shape), mesh, dim)
+        assert torch.equal(means["w"][0], out[0][0]) and torch.equal(news["w"][0], out[0][1])
+        assert torch.equal(means["w"][1], first[0]) and torch.equal(news["w"][1], first[1])
+    return out
+
+
+def pipeline_grads(pp, cfg, params, tokens, n_micro):
+    """`pipeline_loss` on a (pp,) mesh and its grads on this rank: (loss,
+    stage index, grads as numpy)."""
+    from repro_torch.distributed.pipeline import pipeline_loss
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.models import Model
+    from repro_torch.tree import tree_leaves, unflatten
+
+    mesh = mesh_of((pp,), ("pp",))
+    if not _on(mesh):
+        return None
+    params = params_from_numpy(params, "cpu")
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    with _deterministic():
+        loss = pipeline_loss(Model(cfg), unflatten(params, leaves), {"tokens": torch.from_numpy(tokens)}, mesh, "pp",
+                             n_micro)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    return float(loss), mesh.get_local_rank("pp"), unflatten(params, [g.numpy() for g in grads])
