@@ -324,7 +324,8 @@ failure is caught.
         2` (starcoder2-3b reduced; mamba2-130m reduced, 3 steps, under
         deterministic algorithms): each rank's tokens and every step's
         loss equal to the same CLI's on `--execution kernel` here, rank 0
-        alone printing.
+        alone printing (both launchers at once, the `kernel` runs beside
+        them).
 11. The static analysis (`repro_torch.analysis`):
     (a) `python -m repro_torch.analysis --matrix smoke -v` on the card in a
         subprocess (it and (b)'s two run beside (c), each in its own
@@ -372,6 +373,28 @@ failure is caught.
         shapes, each rank's grads within max(1e-5, 1e-3 max|g|); the
         whole-batch model's readings printed beside (`rank_pipeline`
         says why they are not held).
+13. The OS I-S baseline and the dry run:
+    (a) `core.ozaki1` (`ozaki1_gemm` / `ozaki1_cgemm`) at (250, 383, 517)
+        and (12, 64, 64) (ragged, and m below `torch._int_mm`'s 17), S =
+        5 and 9, float64 and complex128: the card's output bitwise the
+        CPU's, one `torch._int_mm` a cross product
+        (`ozaki1.int8_product.int_mm_calls`); then complex128 4096^3 at S
+        = 9 within 1e-11 of `torch.matmul` (the reference test's bound),
+        timed beside phase 3b's kernel and cuBLAS zgemm, its 3 x 45 = 135
+        int8 products counted;
+    (b) the dry run (`launch.dryrun`, meta tensors in a fake world, no
+        card) in subprocesses started after phase 12's timed cases,
+        beside 12c: the CLI for
+        mamba2-130m's and qwen2.5-32b's train_4k on 16 x 16, their
+        records printed; `--dry-run-task mesh|one` (this script) runs
+        `dry_run` on phase 12a's mamba2-130m `kernel` step on (2, 2, 1), whose
+        predicted collectives of rank 0 (count and bytes by kind) must
+        equal phase 12a rank 0's `CollectiveLog` of a step, and on phase
+        9b's one-process step, whose predicted launches must equal the
+        card's count of that step (run here after a warm-up step) and
+        whose predicted peak (arguments + temp) must lie within 0.75-1.5x
+        of the card's `max_memory_allocated` during it (less what was
+        allocated before its state).
 
 The last lines are the kernels' JSON record (with each kernel's launches
 in phase 7b, `serve_launches`, in phase 8, `blocks_serve_launches`, in
@@ -384,6 +407,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import gc
 import io
 import json
 import os
@@ -3538,27 +3563,38 @@ def sharded_clis(dev, tmp):
     torch.distributed.run --nproc-per-node 2 --execution sharded --residue
     2`, each rank's tokens (the serve CLI) or every step's loss (the train
     CLI) equal to the same CLI's on `--execution kernel` here; rank 0
-    alone prints."""
-    for kind, flags in (("serve", SHARD_SERVE_CLI), ("train", SHARD_TRAIN_CLI)):
-        rc, want = cli_record(kind, flags + ["--execution", "kernel", "--device", dev.type])
-        if rc != 0:
-            raise AssertionError(f"the {kind} CLI on kernel exited {rc}")
-        argv = flags + ["--execution", "sharded", "--residue", "2", "--device", dev.type]
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
-                            __file__, "--rank-task", f"cli_{kind}", str(tmp), dev.type, *argv],
-                           capture_output=True, text=True, timeout=RANK_TIMEOUT)
-        if r.returncode != 0:
-            raise AssertionError(f"torch.distributed.run of the {kind} CLI exited {r.returncode}:\n"
-                                 f"{r.stdout[-4000:]}\n{r.stderr[-6000:]}")
-        printed = [line for line in r.stdout.splitlines() if line.startswith("[")]
-        got = [json.loads((tmp / f"cli_{kind}.rank{rank}.json").read_text()) for rank in range(2)]
-        if any(g != want for g in got) or len(printed) != 1:
-            raise AssertionError(f"{kind} CLI: ranks {got} against kernel {want}; printed {printed}")
-        print(f"  10c python -m torch.distributed.run --nproc-per-node 2 -m repro_torch.launch.{kind} "
-              f"{' '.join(argv)}: exit 0 in {time.perf_counter() - t0:.1f} s, {printed[0]!r} from rank 0 alone, "
-              f"both ranks' {'tokens' if kind == 'serve' else 'losses'} {want} bitwise --execution kernel's",
-              flush=True)
+    alone prints.  Both launchers start at once, and the `kernel` runs go
+    here while their ranks run (a launcher's seconds are taken beside
+    them)."""
+    runs = {}
+    try:
+        for kind, flags in (("serve", SHARD_SERVE_CLI), ("train", SHARD_TRAIN_CLI)):
+            argv = flags + ["--execution", "sharded", "--residue", "2", "--device", dev.type]
+            proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+                                     "2", __file__, "--rank-task", f"cli_{kind}", str(tmp), dev.type, *argv],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            runs[kind] = (flags, argv, proc, time.perf_counter())
+        for kind, (flags, argv, proc, t0) in runs.items():
+            rc, want = cli_record(kind, flags + ["--execution", "kernel", "--device", dev.type])
+            if rc != 0:
+                raise AssertionError(f"the {kind} CLI on kernel exited {rc}")
+            out, err = proc.communicate(timeout=max(1.0, t0 + RANK_TIMEOUT - time.perf_counter()))
+            if proc.returncode != 0:
+                raise AssertionError(f"torch.distributed.run of the {kind} CLI exited {proc.returncode}:\n"
+                                     f"{out[-4000:]}\n{err[-6000:]}")
+            printed = [line for line in out.splitlines() if line.startswith("[")]
+            got = [json.loads((tmp / f"cli_{kind}.rank{rank}.json").read_text()) for rank in range(2)]
+            if any(g != want for g in got) or len(printed) != 1:
+                raise AssertionError(f"{kind} CLI: ranks {got} against kernel {want}; printed {printed}")
+            print(f"  10c python -m torch.distributed.run --nproc-per-node 2 -m repro_torch.launch.{kind} "
+                  f"{' '.join(argv)}: exit 0 in {time.perf_counter() - t0:.1f} s (both launchers at once), "
+                  f"{printed[0]!r} from rank 0 alone, both ranks' {'tokens' if kind == 'serve' else 'losses'} "
+                  f"{want} bitwise --execution kernel's", flush=True)
+    finally:
+        for _, _, proc, _ in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
 
 
 # phase 11: the static analysis (`repro_torch.analysis`) on the card.  11b's
@@ -3570,6 +3606,12 @@ def sharded_clis(dev, tmp):
 ANALYSIS_CHUNKED = (16, INT8_K_LIMIT + 5, 16)
 ANALYSIS_EXECUTIONS = ("kernel", "per_modulus_kernel", "fused", "fp8")  # 11c, under torch.profiler
 ANALYSIS_TIMEOUT = 300
+# 11c profiles a call again, up to this many times in all, only where
+# torch.profiler recorded no device event at all (once on the H100 a
+# profile of fp8 float64 at SMOKE_SHAPE held none of the port's kernels,
+# which every other run of this phase held); a profile that holds any
+# device event is checked as it is
+PROFILE_ATTEMPTS = 3
 # each CUDA kernel function (as a profiler names it, by its identifier) and
 # the wrapper whose launches it counts
 KERNEL_WRAPPER = {"residue_cast_kernel": "residue_cast", "int8_mod_gemm_kernel": "int8_mod_gemm",
@@ -3626,9 +3668,11 @@ def device_launches(prof):
 
 def analysis_profiled(dev, GemmPolicy, linalg):
     """Phase 11c: for each execution, dtype and shape, a warm call, then one
-    call traced under `torch.profiler`: the card's launches of each kernel
+    call traced under `torch.profiler` (again where the profile holds no
+    device event at all, PROFILE_ATTEMPTS): the card's launches of each kernel
     equal to the trace's launch records of its wrapper, their total to
     `expected_launch_count`.  Returns 11b's `kernel` sgemm trace (for 11d)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.analysis import expected_launch_count, trace
@@ -3647,14 +3691,21 @@ def analysis_profiled(dev, GemmPolicy, linalg):
                 run = lambda x, w: linalg.matmul(x, w, policy=pol, device=dev)  # noqa: E731
                 run(a, b)
                 torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    tr = trace(run, a, b)
-                    torch.cuda.synchronize()
+                for attempt in range(1, PROFILE_ATTEMPTS + 1):
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        tr = trace(run, a, b)
+                        torch.cuda.synchronize()
+                    if any(e.device_type == DeviceType.CUDA for e in prof.key_averages()):
+                        break
+                    print(f"  11c {execution} {dtype_name} {shape}: torch.profiler recorded no device event at all "
+                          f"(profile {attempt} of at most {PROFILE_ATTEMPTS})", flush=True)
                 got = device_launches(prof)
                 want = expected_launch_count(pol.execution_backend(), pol.plan_for(*shape), shape)
                 if got != tr.launch_counts() or sum(got.values()) != want:
+                    events = sorted({e.key[:60] for e in prof.key_averages() if e.device_type == DeviceType.CUDA})
                     raise AssertionError(f"11c {execution} {dtype_name} {shape}: the card ran {got}, the trace "
-                                         f"records {tr.launch_counts()}, the perfmodel predicts {want}")
+                                         f"records {tr.launch_counts()}, the perfmodel predicts {want}; the "
+                                         f"profile's device events: {events}")
                 seen[shape, execution, dtype_name] = got
                 if (shape, execution, dtype_name) == (ANALYSIS_CHUNKED, "kernel", "float32"):
                     chunked_kernel = tr
@@ -3844,7 +3895,8 @@ def mesh_training(dev, GemmPolicy, tmp):
     world of 4 ranks: each mesh case's steps on its first ranks,
     compression over 2 and 4, the pipeline over 2.  Every rank's gathered
     state and losses bitwise the reference's (equal fingerprints).
-    Returns rank 0's launches of the cases."""
+    Returns rank 0's launches of the cases and its lines (phase 13b holds
+    the dry run's collectives to them)."""
     refs = mesh_train_references(dev, GemmPolicy)
     t0 = time.perf_counter()
     results = run_ranks(["mesh_train", "compress", "pipeline"], MESH_WORLD, tmp, dev)
@@ -3874,6 +3926,7 @@ def mesh_training(dev, GemmPolicy, tmp):
               f"({100 * line['collective_ms'] / line['ms'][-1]:.1f} % of the last step); every rank's "
               f"{len(line['prints'])} state leaves and losses bitwise the one-process step", flush=True)
         add_counts(launches, line["launches"])
+    rank0 = results["mesh_train"][0]["cases"]
     for world in COMPRESS_RANKS:
         mean, errs = compress_formula(world, dev)
         for rank, res in enumerate(results["compress"][:world]):
@@ -3895,7 +3948,7 @@ def mesh_training(dev, GemmPolicy, tmp):
               f"of that bound, the microbatched sequential model's own {res['mb_full_worst']:.2f}; loss and "
               f"grads {res['pipe_ms']:.1f} ms (sequential {res['mb_ms']:.1f} microbatched, {res['seq_ms']:.1f} "
               f"whole)", flush=True)
-    return launches
+    return launches, rank0
 
 
 def rank_mesh_train(dev, tmp):
@@ -3912,6 +3965,8 @@ def rank_mesh_train(dev, tmp):
     from repro_torch.distributed import sharded_gemm
     from repro_torch.models import Model
     from repro_torch.optim import AdamWConfig
+    from repro_torch.analysis.trace import Collective
+    from repro_torch.launch.dryrun import collective_summary
     from repro_torch.train import make_train_step
     from repro_torch.train.step import init_state
     from repro_torch.tree import tree_map
@@ -3974,7 +4029,8 @@ def rank_mesh_train(dev, tmp):
                       "gathered_bytes": sum(int(np.prod(s)) * dt.itemsize for op, dt, s, _ in log.calls
                                             if op == "broadcast"),
                       "reduced_bytes": sum(int(np.prod(s)) * dt.itemsize for op, dt, s, _ in log.calls
-                                           if op != "broadcast")})
+                                           if op != "broadcast"),
+                      "collectives": collective_summary([Collective(*c) for c in log.calls])})
         del params, state, step, model
         torch.cuda.empty_cache()
     return {"cases": lines}
@@ -4181,6 +4237,200 @@ def mesh_train_cli(dev, tmp):
               f"({both_s:.1f} s)", flush=True)
 
 
+# phase 13a: the OS I-S baseline (`core.ozaki1`) on the int8 tensor cores
+# (`torch._int_mm`): card == cpu bitwise at OZAKI1_CASES (ragged, so the
+# padding runs; m = 12 below `_int_mm`'s 17) for S in OZAKI1_SLICES, float64
+# and complex128; then complex128 OZAKI1_MAIN^3 at S = 9 against
+# torch.matmul within OZAKI1_RTOL (tests/test_core_gemm.py's bound), timed,
+# its int8 products counted (3 real emulations x S(S+1)/2)
+OZAKI1_CASES = ((250, 383, 517), (12, 64, 64))
+OZAKI1_SLICES = (5, 9)
+OZAKI1_MAIN, OZAKI1_MAIN_S, OZAKI1_RTOL = 4096, 9, 1e-11
+# phase 13b: the dry run (`launch.dryrun`) in subprocesses, started after
+# phase 12's timed cases, beside 12c (they use the host alone and take ~50
+# s; 12c's seconds are taken beside them) and read in phase 13:
+# the CLI for these archs' train_4k on 16 x 16, and this script's
+# --dry-run-task for phase 12a's (2, 2, 1) step and for phase 9b's
+# one-process step (`dry_run`); the predicted peak of 9b's step within
+# DRYRUN_PEAK_RATIO of the card's
+DRYRUN_CLI_ARCHS = ("mamba2-130m", "qwen2.5-32b")
+DRYRUN_PEAK_RATIO = (0.75, 1.5)
+DRYRUN_TIMEOUT = 600
+
+
+def ozaki1_phase(rng, dev, zgemm_ms):
+    """Phase 13a (see OZAKI1_CASES).  `zgemm_ms`: phase 3b's kernel and
+    cuBLAS zgemm times at MAIN^3, printed beside."""
+    from repro_torch.core import ozaki1
+
+    for m, k, n in OZAKI1_CASES:
+        for dtype in (np.float64, np.complex128):
+            a, b = phi_matrix(rng, (m, k), PHI, dtype), phi_matrix(rng, (k, n), PHI, dtype)
+            fn = ozaki1.ozaki1_cgemm if np.iscomplexobj(a) else ozaki1.ozaki1_gemm
+            for s in OZAKI1_SLICES:
+                before = ozaki1.int8_product.int_mm_calls
+                got = fn(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev), s)
+                want = fn(a, b, s, device="cpu")
+                calls = ozaki1.int8_product.int_mm_calls - before
+                expect = (3 if np.iscomplexobj(a) else 1) * ozaki1.int8_gemm_count(s)
+                what = f"13a ozaki1 {np.dtype(dtype).name} ({m}, {k}, {n}) S={s}"
+                if not same_bits(got.cpu(), want):
+                    raise AssertionError(f"{what}: card != cpu, {first_difference(got.cpu(), want)}")
+                if calls != expect:
+                    raise AssertionError(f"{what}: {calls} torch._int_mm calls, expected {expect}")
+        print(f"  13a ozaki1 ({m}, {k}, {n}), S = {OZAKI1_SLICES}, float64 and complex128: card == cpu bitwise, "
+              f"one torch._int_mm a cross product", flush=True)
+    size, s = OZAKI1_MAIN, OZAKI1_MAIN_S
+    a = torch.from_numpy(phi_matrix(rng, (size, size), PHI, np.complex128)).to(dev)
+    b = torch.from_numpy(phi_matrix(rng, (size, size), PHI, np.complex128)).to(dev)
+    ozaki1.ozaki1_cgemm(a, b, s)  # warm-up
+    before = ozaki1.int8_product.int_mm_calls
+    y, ms = timed_calls(lambda: ozaki1.ozaki1_cgemm(a, b, s), 3)
+    products = (ozaki1.int8_product.int_mm_calls - before) // 3
+    rel = rel_error(y, a, b)
+    expect = 3 * ozaki1.int8_gemm_count(s)
+    print(f"  13a ozaki1_cgemm complex128 {size}^3, S = {s}: {ms:.3f} ms ({8 * size**3 / ms / 1e9:.2f} TFLOPS; "
+          f"phase 3b's kernel zgemm {zgemm_ms[0]:.3f} ms, cuBLAS zgemm {zgemm_ms[1]:.3f} ms), rel_err {rel:.3e} "
+          f"(bound {OZAKI1_RTOL}), {products} int8 products on torch._int_mm (3 x {ozaki1.int8_gemm_count(s)})",
+          flush=True)
+    if products != expect or not rel <= OZAKI1_RTOL:
+        raise AssertionError(f"13a ozaki1_cgemm {size}^3: {products} products (expected {expect}), "
+                             f"relative error {rel} (bound {OZAKI1_RTOL})")
+    return {"ms": ms, "rel_err": rel, "products": products}
+
+
+def start_dryruns(tmp):
+    """13b's subprocesses, all started at once: {name: process}.  They use
+    the host alone, at a lower priority than phase 12c's processes."""
+    src = str(pathlib.Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [src, os.environ.get("PYTHONPATH")])))
+    start = functools.partial(subprocess.Popen, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              preexec_fn=functools.partial(os.nice, 10))
+    jobs = {}
+    for arch in DRYRUN_CLI_ARCHS:
+        jobs[arch] = start([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", "train_4k",
+                            "--out", str(tmp / "cli")])
+    for task in ("mesh", "one"):
+        jobs[task] = start([sys.executable, str(pathlib.Path(__file__).resolve()), "--dry-run-task", task, str(tmp)])
+    return jobs
+
+
+def dry_run_task(task, tmp) -> int:
+    """Card-less side of 13b (this script started with --dry-run-task):
+    the dry run of phase 12a's mamba2-130m `kernel` step on (2, 2, 1)
+    (`task` "mesh") or of phase 9b's one-process step ("one"), on meta
+    tensors, written to TMP/dryrun_<task>.json."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+    from repro_torch import GemmPolicy
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.dryrun import dry_run
+    from repro_torch.optim import AdamWConfig, cosine_warmup
+
+    cfg, data = mesh_train_model("mamba2", GemmPolicy)
+    spec = ShapeSpec(f"train_b{data.global_batch}_s{data.seq_len}", data.seq_len, data.global_batch, "train")
+    opt = AdamWConfig(**TRAIN_OPT)
+    if task == "mesh":
+        out = dry_run(cfg, spec, ((2, 2, 1), SHARD_NAMES), opt_cfg=opt, donate=True)
+    else:
+        out = dry_run(cfg, spec, None, opt_cfg=opt, schedule=cosine_warmup(TRAIN_WARMUP, TRAIN_STEPS), donate=True)
+    (pathlib.Path(tmp) / f"dryrun_{task}.json").write_text(json.dumps(out))
+    return 0
+
+
+def finish_dryrun(name, proc, t0):
+    """A 13b subprocess's output, once it exited 0 (else the phase fails)."""
+    out, err = proc.communicate(timeout=max(1.0, t0 + DRYRUN_TIMEOUT - time.perf_counter()))
+    if proc.returncode != 0:
+        raise AssertionError(f"13b {name}: exited {proc.returncode}:\n{out[-6000:]}\n{err[-4000:]}")
+    return out
+
+
+def measured_step(dev, GemmPolicy, kernels):
+    """Phase 9b's one-process `kernel` step on the card, after a warm-up
+    step: its launches by kernel and its peak memory, the step's own (the
+    max allocated during it less what was allocated before its state was
+    made, so its params, optimizer state and batch count and nothing of
+    the earlier phases)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, cosine_warmup
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import init_state
+
+    cfg, data = mesh_train_model("mamba2", GemmPolicy)
+    model, src, opt = Model(cfg), SyntheticLM(data), AdamWConfig(**TRAIN_OPT)
+    step = make_train_step(model, opt, cosine_warmup(TRAIN_WARMUP, TRAIN_STEPS))[0]
+    gc.collect()  # no earlier phase's garbage freed during the step
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params, state = init_state(model, opt, torch.Generator().manual_seed(0), dev)
+    batch = [{k: torch.from_numpy(v).to(dev) for k, v in src.batch(i).items()} for i in range(2)]
+    params, state, met = step(params, state, batch[0])
+    del met
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    params, state, met = step(params, state, batch[1])
+    torch.cuda.synchronize()
+    counts = nonzero_counts(kernels)
+    peak = torch.cuda.max_memory_allocated() - base
+    del params, state, met, batch
+    torch.cuda.empty_cache()
+    return counts, peak
+
+
+def dryrun_phase(jobs, tmp, dev, GemmPolicy, kernels, mesh_lines, t0):
+    """Phase 13b: read the dry-run subprocesses; hold the predicted
+    collectives of phase 12a's (2, 2, 1) step to rank 0's log there, the
+    predicted launches of 9b's step to the card's count of that step, and
+    the predicted peak (arguments + temp) within DRYRUN_PEAK_RATIO of the
+    card's."""
+    counts, peak = measured_step(dev, GemmPolicy, kernels)
+    check_train_launches(counts, train_expect("kernel"), TRAIN_LINEARS, 1, "13b the card's 9b step")
+    for arch in DRYRUN_CLI_ARCHS:
+        out = finish_dryrun(arch, jobs[arch], t0)
+        line = [x for x in out.splitlines() if x.startswith("[ok]")]
+        rec = json.loads((tmp / "cli" / f"{arch}__train_4k__pod16x16.json").read_text())
+        mem = rec["memory_analysis"]
+        if len(line) != 1 or rec["status"] != "ok" or "fits" not in rec:
+            raise AssertionError(f"13b the dry-run CLI on {arch}: {out[-4000:]}")
+        print(f"  13b python -m repro_torch.launch.dryrun --arch {arch} --shape train_4k (a dry run on meta tensors, "
+              f"rank 0 of a fake world of 256): {line[0].removeprefix('[ok]').strip()}", flush=True)
+        print(f"      record: args {mem['argument_size_in_bytes']} B, temp {mem['temp_size_in_bytes']} B, output "
+              f"{mem['output_size_in_bytes']} B, fits {rec['fits']} (80 GiB), flops/dev {rec['flops_per_device']:.4e}, "
+              f"broadcast {rec['collectives']['broadcast']} B in {rec['collectives']['counts']['broadcast']} ops, "
+              f"build {rec['lower_s']} s, trace {rec['compile_s']} s", flush=True)
+    pred = {}
+    for task in ("mesh", "one"):
+        finish_dryrun(f"--dry-run-task {task}", jobs[task], t0)
+        pred[task] = json.loads((tmp / f"dryrun_{task}.json").read_text())
+
+    (logged,) = [x for x in mesh_lines if x["model"] == "mamba2" and tuple(x["mesh"]) == (2, 2, 1)]
+    predicted = pred["mesh"]["collectives"]
+    if predicted != logged["collectives"]:
+        raise AssertionError(f"13b collectives of 12a's (2, 2, 1) step: predicted {predicted}, rank 0 logged "
+                             f"{logged['collectives']}")
+    print(f"  13b mamba2-130m kernel step on (2, 2, 1), B {TRAIN_B} x S {TRAIN_S}: predicted collectives of rank 0 "
+          f"(counts {predicted['counts']}, bytes {predicted['total']}) == phase 12a rank 0's CollectiveLog (its last "
+          f"step); trace {pred['mesh']['compile_s']} s", flush=True)
+
+    one = pred["one"]
+    if one["launches"] != counts:
+        raise AssertionError(f"13b 9b's step: predicted launches {one['launches']}, the card counted {counts}")
+    mem = one["memory_analysis"]
+    predicted_peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    ratio = predicted_peak / peak
+    print(f"  13b mamba2-130m kernel one-process step (9b's): predicted launches {one['launches']} == the card's "
+          f"count; predicted peak {predicted_peak / 2**30:.3f} GiB (args {mem['argument_size_in_bytes'] / 2**30:.3f} "
+          f"+ temp {mem['temp_size_in_bytes'] / 2**30:.3f}) against torch.cuda.max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB: ratio {ratio:.3f} (held within {DRYRUN_PEAK_RATIO}); predicted flops/dev "
+          f"{one['flops_per_device']:.4e}, int8 ops {one['kernel_ops_per_device']['int8']:.4e}", flush=True)
+    if not DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1]:
+        raise AssertionError(f"13b 9b's step: predicted peak {predicted_peak} B against the card's {peak} B "
+                             f"(ratio {ratio:.3f})")
+    return {"peak_ratio": ratio, "predicted_peak": predicted_peak, "peak": peak}
+
+
 def rank_main(tasks, tmp, device_type, argv) -> int:
     """A rank of phase 10 (this script started with --rank-task)."""
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
@@ -4208,6 +4458,8 @@ def rank_main(tasks, tmp, device_type, argv) -> int:
 def main() -> int:
     if sys.argv[1:2] == ["--rank-task"]:
         return rank_main(*sys.argv[2:5], sys.argv[5:])
+    if sys.argv[1:2] == ["--dry-run-task"]:
+        return dry_run_task(*sys.argv[2:4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the card", file=sys.stderr)
         return 1
@@ -4279,6 +4531,7 @@ def main() -> int:
     counts, results = main_path(rng, dev, GemmPolicy, linalg, kernels)
     tma = {"karatsuba_fused": kernels.karatsuba_fused.karatsuba_mod_gemm_batched.tma_launches,
            "int8_mod_gemm": kernels.int8_mod_gemm.int8_mod_gemm_batched.tma_launches}
+    zgemm_ms = next((r["kernel_ms"], r["native_ms"]) for r in results if r["routine"] == "zgemm")
     print(f"  kernel main-path launches: {counts} (by TMA: karatsuba_fused {tma['karatsuba_fused']}, "
           f"int8_mod_gemm {tma['int8_mod_gemm']})", flush=True)
 
@@ -4373,19 +4626,36 @@ def main() -> int:
     torch.cuda.empty_cache()
     t12 = time.perf_counter()
     mesh_tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    dry_tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    jobs = {}
     try:
         print("phase 12a/b/d: the parameter-sharded training mesh, ranks on the card over gloo (2 and 4); 12d "
               "compression and the pipeline", flush=True)
-        mesh_counts = mesh_training(dev, GemmPolicy, mesh_tmp)
+        mesh_counts, mesh_lines = mesh_training(dev, GemmPolicy, mesh_tmp)
+        print("phase 13b's dry runs started in subprocesses (they use the host alone, beside 12c)", flush=True)
+        jobs, t_dry = start_dryruns(dry_tmp), time.perf_counter()
         print("phase 12c: the train CLI with --mesh under torch.distributed.run, 2 ranks, and its resume on "
               "another mesh", flush=True)
         mesh_train_cli(dev, mesh_tmp)
+        print(f"  phase 12 launches (rank 0): {mesh_counts}", flush=True)
+        print(f"  phase 12 took {time.perf_counter() - t12:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+        t13 = time.perf_counter()
+        print("phase 13a: the OS I-S baseline (core.ozaki1) on torch._int_mm", flush=True)
+        ozaki1_phase(rng, dev, zgemm_ms)
+        torch.cuda.empty_cache()
+        print("phase 13b: the dry run (launch.dryrun) against phase 12's collectives and phase 9b's step", flush=True)
+        dryrun_phase(jobs, dry_tmp, dev, GemmPolicy, kernels, mesh_lines, t_dry)
     finally:
+        for proc in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         import shutil
 
         shutil.rmtree(mesh_tmp, ignore_errors=True)
-    print(f"  phase 12 launches (rank 0): {mesh_counts}", flush=True)
-    print(f"  phase 12 took {time.perf_counter() - t12:.1f} s", flush=True)
+        shutil.rmtree(dry_tmp, ignore_errors=True)
+    print(f"  phase 13 took {time.perf_counter() - t13:.1f} s", flush=True)
 
     launches = {"kernel": counts, "fused": fused_counts, "fp8": fp8_counts, "tune": tune_counts,
                 "attention": attention_counts}

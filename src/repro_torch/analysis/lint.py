@@ -12,10 +12,11 @@ traced calls, these parse files:
   ``--execution`` flag and has ``--rtol``, the accuracy-adaptive axis;
 * no file of `EXECUTION_CLIS` is missing.
 
-`EXECUTION_CLIS` holds the port's CLIs that take an execution.  The
-reference's `launch/dryrun.py` and its benchmarks join it when the port
-has them (ROADMAP items 13b and 13a).  `python -m repro_torch.analysis`
-runs :func:`lint_repo` beside its traced matrix.
+`EXECUTION_CLIS` holds the port's CLIs that take an execution: the
+train, dry-run and serve launchers, as in the reference's list.  The
+reference's `bench_throughput` joins it when the port's benchmark has its
+twin.  `python -m repro_torch.analysis` runs :func:`lint_repo` beside its
+traced matrix.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ __all__ = ["EXECUTION_CLIS", "PORT_SECTION", "execution_choices", "has_flag", "l
 #: the port's CLIs that must expose the whole execution axis
 EXECUTION_CLIS = (
     "src/repro_torch/launch/train.py",
+    "src/repro_torch/launch/dryrun.py",
     "src/repro_torch/launch/serve.py",
 )
 

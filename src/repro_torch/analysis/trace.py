@@ -8,7 +8,8 @@ walks the jaxpr of a traced program, `trace(fn, *args, **kwargs)` runs
 * :class:`Launch`, one per call of a kernel wrapper (the ten of
   `kernels.WRAPPERS`): the kernel's name, its operands' dtypes and
   shapes, the launch's contraction length ``k``, the megakernels'
-  in-launch ``chunk_limit`` and the enclosing launches.  Each wrapper
+  in-launch ``chunk_limit``, the enclosing launches and its products'
+  operations (``ops``).  Each wrapper
   writes its record just before it dispatches (`kernels.common.
   traced_launch`), so a CPU run, which takes the plain versions, records
   the launches the card runs; it does not count them in `.launches`.
@@ -94,7 +95,9 @@ class Launch:
     """One kernel launch: `name` is its source's (the `kernels.WRAPPERS`
     key), `k` its contraction length (None for a kernel that multiplies
     nothing), `chunk_limit` the megakernels' in-launch K chunk, `path` the
-    launches it ran inside (none for a wrapper called directly)."""
+    launches it ran inside (none for a wrapper called directly), `ops` the
+    (engine, operations) of its products ('int8' or 'e4m3', 2 a MAC; None
+    for a kernel that multiplies nothing)."""
 
     name: str
     dtypes: tuple
@@ -102,6 +105,7 @@ class Launch:
     k: int | None = None
     chunk_limit: int | None = None
     path: tuple = ()
+    ops: tuple | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,11 +162,11 @@ class Trace:
 
     # ------------------------------------------------- the launch recorder
 
-    def launch(self, name, tensors, k, chunk_limit):
+    def launch(self, name, tensors, k, chunk_limit, ops=None):
         self.launches.append(Launch(
             name, tuple(t.dtype for t in tensors), tuple(tuple(t.shape) for t in tensors),
             None if k is None else int(k), None if chunk_limit is None else int(chunk_limit),
-            tuple(self._open)))
+            tuple(self._open), ops))
         self._open.append(name)
 
     def end_launch(self):

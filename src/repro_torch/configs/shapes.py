@@ -42,7 +42,7 @@ SHAPES = {
 
 def applicable(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
     if shape == "long_500k" and cfg.name.split("-reduced")[0] not in SUBQUADRATIC:
-        return False, "full-attention arch: 512k dense decode skipped"
+        return False, "full-attention arch: 512k dense decode skipped (DESIGN.md S5)"
     return True, ""
 
 
@@ -50,15 +50,16 @@ def _spec(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def input_specs(cfg: ModelConfig, shape: str) -> dict:
-    """Stand-ins for every model input of this cell.
+def input_specs(cfg: ModelConfig, shape: str | ShapeSpec) -> dict:
+    """Stand-ins for every model input of this cell (`shape` a name of
+    `SHAPES` or any `ShapeSpec`).
 
     For train/prefill: the (tokens [+ prefix_embeds]) batch; the token
     count is cut by n_prefix_embeds so the whole sequence is seq_len.  For
     decode: one new token; the cache shapes come from
     `Model.cache_abstract`.
     """
-    spec = SHAPES[shape]
+    spec = SHAPES[shape] if isinstance(shape, str) else shape
     npre = cfg.n_prefix_embeds if cfg.frontend else 0
     if spec.kind in ("train", "prefill"):
         out = {"tokens": _spec((spec.global_batch, spec.seq_len - npre), torch.int32)}

@@ -12,8 +12,11 @@ taken in int32, because there the reciprocal trick's n*p can pass 2^24 and
 round.
 
 `on_card` is the dispatch rule of every kernel wrapper: tensors on the CPU
-take the plain version, tensors on a CUDA device launch the kernel, and
-anything else raises.  `traced_launch` is the scope every wrapper enters
+take the plain version, tensors on a CUDA device launch the kernel,
+tensors on the meta device take the card's branch up to its launch (the
+outputs and workspace allocated as for the card, then returned with no
+launch: the dry run's shapes, `repro_torch.launch.dryrun`), and anything
+else raises.  `traced_launch` is the scope every wrapper enters
 just before that dispatch, so a trace (`repro_torch.analysis.trace`)
 records the same launches whichever way it goes.
 """
@@ -32,13 +35,15 @@ LIMB = float(1 << LIMB_BITS)
 
 
 def on_card(*tensors: torch.Tensor) -> bool:
-    """True when every tensor lies on one CUDA device, False when all lie
-    on the CPU; raises for a mix or another device type."""
+    """True when every tensor lies on one CUDA device or all lie on the
+    meta device (whose launches return their outputs once allocated),
+    False when all lie on the CPU; raises for a mix or another device
+    type."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"operands lie on different devices: {sorted(map(str, devices))}")
     (device,) = devices
-    if device.type == "cuda":
+    if device.type in ("cuda", "meta"):
         return True
     if device.type == "cpu":
         return False
@@ -70,14 +75,17 @@ class _LaunchScope:
         return False
 
 
-def traced_launch(name: str, tensors, *, k: int | None = None, chunk_limit: int | None = None):
+def traced_launch(name: str, tensors, *, k: int | None = None, chunk_limit: int | None = None,
+                  ops: tuple[str, int] | None = None):
     """The scope a wrapper dispatches in: kernel `name` (its source's name,
     the key of `kernels.WRAPPERS`) on `tensors`, contracting `k` (None for
     a kernel that multiplies nothing), reducing mod p every `chunk_limit`
-    inside the launch (the megakernels).  Free when nothing traces."""
+    inside the launch (the megakernels), its products doing `ops`, the
+    (engine, operations) pair (engine 'int8' or 'e4m3'; 2 a MAC; None for
+    a kernel that multiplies nothing).  Free when nothing traces."""
     if not TRACERS:
         return _UNTRACED
-    return _LaunchScope((name, tuple(tensors), k, chunk_limit))
+    return _LaunchScope((name, tuple(tensors), k, chunk_limit, ops))
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:

@@ -168,6 +168,8 @@ def _launch(e_res, e_mu, e_nu, ctx, *, out_dd):
     mod_arr = np.ascontiguousarray(ctx.moduli, dtype=np.int32)
     coef, split = (np.ascontiguousarray(t) for t in route_tables(ctx))
     weights = np.ascontiguousarray(_weight_table(ctx))
+    if out.is_meta:  # shapes only: no launch
+        return out
     status = _entry()(
         e_res.data_ptr(), r1.data_ptr(), r2.data_ptr(), c1.data_ptr(), c2.data_ptr(),
         out.data_ptr(), s, n_mod, m, n, int(out_dd),

@@ -144,6 +144,8 @@ def _launch(q, k, v, *, causal):
     geoms = [None, None]
     if q.dtype == torch.bfloat16:  # v has k's geometry
         geoms = [(ctypes.c_longlong * 7)(*tma_geometry(t)) for t in (q, k)]
+    if out.is_meta:  # shapes only: no launch
+        return out
     status = _entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, s, sk, h, kv, d, int(causal), CARD_DTYPES[q.dtype], *geoms,

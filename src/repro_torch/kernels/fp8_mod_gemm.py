@@ -150,12 +150,11 @@ def fp8_mod_gemm_batched(
         raise ValueError(f"shape mismatch: a {tuple(a.shape)}, b {tuple(b.shape)}, N={len(moduli)}")
     tile = check_tile("fp8", "real", tile)
     tensors = (a, b) if carry is None else (a, b, carry)
-    with traced_launch("fp8_mod_gemm", tensors, k=k):
+    # four digit products a plane (HH, LL and the cross over 2k), 2 ops a MAC
+    with traced_launch("fp8_mod_gemm", tensors, k=k, ops=("e4m3", 8 * n_mod * m * b.shape[-1] * k)):
         if on_card(*tensors):
-            out = launch_mod_gemm("fp8_mod_gemm", a, b, moduli=moduli, carry=carry, tile=tile)
-            fp8_mod_gemm_batched.launches += 1
-            fp8_mod_gemm_batched.tma_launches += build.uses_tma("fp8_mod_gemm", a, a, b, b)
-            return out
+            return launch_mod_gemm("fp8_mod_gemm", a, b, moduli=moduli, carry=carry, tile=tile,
+                                   counter=fp8_mod_gemm_batched)
         return fp8_mod_gemm_plain(a, b, moduli=moduli, carry=carry)
 
 
@@ -198,13 +197,10 @@ def fp8_karatsuba_mod_gemm_batched(
         )
     tile = check_tile("fp8", "complex", tile)
     tensors = (ar, ai, br, bi) if carry is None else (ar, ai, br, bi, *carry)
-    with traced_launch("fp8_karatsuba", tensors, k=k):
+    with traced_launch("fp8_karatsuba", tensors, k=k, ops=("e4m3", 24 * n_mod * m * br.shape[-1] * k)):
         if on_card(*tensors):
-            out = launch_karatsuba("fp8_karatsuba", "fp8_karatsuba_launch", ar, ai, br, bi,
-                                   moduli=moduli, carry=carry, tile=tile)
-            fp8_karatsuba_mod_gemm_batched.launches += 1
-            fp8_karatsuba_mod_gemm_batched.tma_launches += build.uses_tma("fp8_karatsuba", ar, ai, br, bi)
-            return out
+            return launch_karatsuba("fp8_karatsuba", "fp8_karatsuba_launch", ar, ai, br, bi,
+                                    moduli=moduli, carry=carry, tile=tile, counter=fp8_karatsuba_mod_gemm_batched)
         return fp8_karatsuba_mod_gemm_plain(ar, ai, br, bi, moduli=moduli, carry=carry)
 
 

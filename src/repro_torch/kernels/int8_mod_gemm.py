@@ -66,11 +66,12 @@ def _entry(source: str):
     return fn
 
 
-def launch_mod_gemm(source: str, a, b, *, moduli, carry=None, tile):
+def launch_mod_gemm(source: str, a, b, *, moduli, carry=None, tile, counter):
     """Launch the residue-GEMM kernel of `source` (`int8_mod_gemm.cu` or
     `fp8_mod_gemm.cu`, which share one C interface) with the block `tile`
-    (bm, bn, bk) into a new (N, m, n) int8 output; the caller checks the
-    tile and counts the launch."""
+    (bm, bn, bk) into a new (N, m, n) int8 output, counted on `counter`
+    (the wrapper's `launches` and `tma_launches`); the caller checks the
+    tile."""
     n_mod, m, k = a.shape
     n = b.shape[-1]
     check_tensor("a", a, torch.int8, (n_mod, m, k))
@@ -79,12 +80,16 @@ def launch_mod_gemm(source: str, a, b, *, moduli, carry=None, tile):
         check_tensor("carry", carry, torch.int8, (n_mod, m, n))
     out = torch.empty((n_mod, m, n), dtype=torch.int8, device=a.device)
     mod_arr = np.ascontiguousarray(moduli, dtype=np.int32)
+    if out.is_meta:  # shapes only: no launch
+        return out
     status = _entry(source)(
         a.data_ptr(), b.data_ptr(), None if carry is None else carry.data_ptr(),
         out.data_ptr(), n_mod, m, n, k, *tile, mod_arr.ctypes.data,
         torch.cuda.current_stream(a.device).cuda_stream,
     )
     build.check_launch(source, status)
+    counter.launches += 1
+    counter.tma_launches += build.uses_tma(source, a, a, b, b)
     return out
 
 
@@ -112,12 +117,10 @@ def int8_mod_gemm_batched(
         raise ValueError(f"k={k} exceeds the exact-int32 limit 2^17; chunk K")
     tile = check_tile("kernel", "real", tile)
     tensors = (a, b) if carry is None else (a, b, carry)
-    with traced_launch("int8_mod_gemm", tensors, k=k):
+    with traced_launch("int8_mod_gemm", tensors, k=k, ops=("int8", 2 * n_mod * m * b.shape[-1] * k)):
         if on_card(*tensors):
-            out = launch_mod_gemm("int8_mod_gemm", a, b, moduli=moduli, carry=carry, tile=tile)
-            int8_mod_gemm_batched.launches += 1
-            int8_mod_gemm_batched.tma_launches += build.uses_tma("int8_mod_gemm", a, a, b, b)
-            return out
+            return launch_mod_gemm("int8_mod_gemm", a, b, moduli=moduli, carry=carry, tile=tile,
+                                   counter=int8_mod_gemm_batched)
         return int8_mod_gemm_plain(a, b, moduli=moduli, carry=carry)
 
 
@@ -211,6 +214,8 @@ def _fused_launch(a, b, e_mu, e_nu, ctx, *, n_limbs, out_dd, b_res, chunk_limit,
     (sa1, sa2), (sb1, sb2), (r1, r2, c1, c2) = fused_scales(e_mu, e_nu, ctx, m, n, b_res is not None)
     out = torch.empty((2, m, n) if out_dd else (m, n), dtype=torch.float32, device=a.device)
     tab = fused_tables(ctx, n_limbs)
+    if out.is_meta:  # shapes only: no launch
+        return out
     status = _fused_entry()(
         a.data_ptr(), sa1.data_ptr(), sa2.data_ptr(), ptr(b), ptr(b_res), ptr(sb1), ptr(sb2),
         r1.data_ptr(), r2.data_ptr(), c1.data_ptr(), c2.data_ptr(), out.data_ptr(),
@@ -272,7 +277,9 @@ def fused_mod_gemm(
     if rhs.shape[-2] != a.shape[-1]:
         raise ValueError(f"shape mismatch: a {tuple(a.shape)}, b {tuple(rhs.shape)}")
     tile = check_tile("fused", "real", tile)
-    with traced_launch("fused_mod_gemm", (a, rhs, e_mu, e_nu), k=a.shape[-1], chunk_limit=kw["chunk_limit"]):
+    ops = ("int8", 2 * ctx.n * a.shape[0] * rhs.shape[-1] * a.shape[-1])
+    with traced_launch("fused_mod_gemm", (a, rhs, e_mu, e_nu), k=a.shape[-1], chunk_limit=kw["chunk_limit"],
+                       ops=ops):
         if on_card(a, rhs, e_mu, e_nu):
             return _fused_launch(a, b, e_mu, e_nu, ctx, tile=tile, **kw)
         return fused_mod_gemm_plain(a, b, e_mu, e_nu, ctx, **kw)

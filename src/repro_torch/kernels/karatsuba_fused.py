@@ -80,11 +80,12 @@ def _entry(source: str, symbol: str):
     return fn
 
 
-def launch_karatsuba(source: str, symbol: str, ar, ai, br, bi, *, moduli, carry=None, tile):
+def launch_karatsuba(source: str, symbol: str, ar, ai, br, bi, *, moduli, carry=None, tile, counter):
     """Launch the Karatsuba residue-GEMM entry `symbol` of `source`
     (`karatsuba_fused.cu` or `fp8_karatsuba.cu`, which share one C
-    interface) with the block `tile` (bm, bn, bk) into a new (CR, CI) pair;
-    the caller checks the tile and counts the launch."""
+    interface) with the block `tile` (bm, bn, bk) into a new (CR, CI) pair,
+    counted on `counter` (the wrapper's `launches` and `tma_launches`); the
+    caller checks the tile."""
     n_mod, m, k = ar.shape
     n = br.shape[-1]
     for name, t in (("ar", ar), ("ai", ai)):
@@ -99,12 +100,16 @@ def launch_karatsuba(source: str, symbol: str, ar, ai, br, bi, *, moduli, carry=
     cr = torch.empty((n_mod, m, n), dtype=torch.int8, device=ar.device)
     ci = torch.empty_like(cr)
     mod_arr = np.ascontiguousarray(moduli, dtype=np.int32)
+    if cr.is_meta:  # shapes only: no launch
+        return cr, ci
     status = _entry(source, symbol)(
         ar.data_ptr(), ai.data_ptr(), br.data_ptr(), bi.data_ptr(), *carry_ptrs,
         cr.data_ptr(), ci.data_ptr(), n_mod, m, n, k, *tile, mod_arr.ctypes.data,
         torch.cuda.current_stream(ar.device).cuda_stream,
     )
     build.check_launch(source, status)
+    counter.launches += 1
+    counter.tma_launches += build.uses_tma(source, ar, ai, br, bi)
     return cr, ci
 
 
@@ -141,13 +146,11 @@ def karatsuba_mod_gemm_batched(
         raise ValueError(f"k={k} exceeds the exact-int32 limit 2^17; chunk K")
     tile = check_tile("kernel", "complex", tile)
     tensors = (ar, ai, br, bi) + (() if carry is None else tuple(carry))
-    with traced_launch("karatsuba_fused", tensors, k=k):
+    # three products a plane (D, E, F)
+    with traced_launch("karatsuba_fused", tensors, k=k, ops=("int8", 6 * n_mod * m * br.shape[-1] * k)):
         if on_card(*tensors):
-            out = launch_karatsuba("karatsuba_fused", "karatsuba_mod_gemm_launch", ar, ai, br, bi,
-                                   moduli=moduli, carry=carry, tile=tile)
-            karatsuba_mod_gemm_batched.launches += 1
-            karatsuba_mod_gemm_batched.tma_launches += build.uses_tma("karatsuba_fused", ar, ai, br, bi)
-            return out
+            return launch_karatsuba("karatsuba_fused", "karatsuba_mod_gemm_launch", ar, ai, br, bi,
+                                    moduli=moduli, carry=carry, tile=tile, counter=karatsuba_mod_gemm_batched)
         return karatsuba_mod_gemm_plain(ar, ai, br, bi, moduli=moduli, carry=carry)
 
 
@@ -226,6 +229,8 @@ def _fused_launch(ar, ai, br, bi, e_mu, e_nu, ctx, *, n_limbs, out_dd, b_res, ch
     cr = torch.empty(shape, dtype=torch.float32, device=ar.device)
     ci = torch.empty_like(cr)
     tab = fused_tables(ctx, n_limbs)
+    if cr.is_meta:  # shapes only: no launch
+        return cr, ci
     status = _fused_entry()(
         ar.data_ptr(), ai.data_ptr(), sa1.data_ptr(), sa2.data_ptr(), ptr(br), ptr(bi),
         ptr(brr), ptr(bri), ptr(sb1), ptr(sb2), r1.data_ptr(), r2.data_ptr(), c1.data_ptr(),
@@ -294,8 +299,9 @@ def fused_karatsuba_mod_gemm(
         )
     kw = dict(n_limbs=int(n_limbs), out_dd=out_dd, b_res=b_res, chunk_limit=int(chunk_limit))
     tile = check_tile("fused", "complex", tile)
+    ops = ("int8", 6 * ctx.n * ar.shape[0] * rhs[0].shape[-1] * ar.shape[-1])
     with traced_launch("fused_karatsuba", (ar, ai, *rhs, e_mu, e_nu), k=ar.shape[-1],
-                       chunk_limit=kw["chunk_limit"]):
+                       chunk_limit=kw["chunk_limit"], ops=ops):
         if on_card(ar, ai, *rhs, e_mu, e_nu):
             return _fused_launch(ar, ai, br, bi, e_mu, e_nu, ctx, tile=tile, **kw)
         return fused_karatsuba_mod_gemm_plain(ar, ai, br, bi, e_mu, e_nu, ctx, **kw)

@@ -40,6 +40,8 @@ def launch_copy(x: torch.Tensor) -> torch.Tensor:
     with traced_launch("launch_copy", (x,)):
         if on_card(x):
             out = torch.empty_like(x)
+            if out.is_meta:  # shapes only: no launch
+                return out
             status = _entry()(x.data_ptr(), out.data_ptr(), x.numel(),
                               torch.cuda.current_stream(x.device).cuda_stream)
             build.check_launch("launch_copy", status)

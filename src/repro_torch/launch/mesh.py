@@ -51,7 +51,9 @@ def init_world(device: torch.device) -> tuple[torch.device, bool]:
     return device, True
 
 
-def _mesh(shape: tuple, names: tuple, device_type: str) -> DeviceMesh:
+def make_mesh(shape: tuple, names: tuple, device_type: str = "cuda") -> DeviceMesh:
+    """A mesh of `shape` with dims `names` over the first ranks of the
+    world, in row-major order."""
     return DeviceMesh(device_type, torch.arange(math.prod(shape)).reshape(shape), mesh_dim_names=names)
 
 
@@ -77,7 +79,7 @@ def make_production_mesh(*, multi_pod: bool = False, residue: int = 1, device_ty
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world != need:
         raise ValueError(f"the production mesh {dict(zip(names, shape))} needs {need} ranks; the world has {world}")
-    return _mesh(shape, names, device_type)
+    return make_mesh(shape, names, device_type)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, residue: int = 1, device_type: str = "cuda") -> DeviceMesh:
@@ -90,5 +92,5 @@ def make_host_mesh(data: int = 1, model: int = 1, residue: int = 1, device_type:
     model = min(model, max(1, n // data))
     if residue > 1:
         residue = min(residue, max(1, n // (data * model)))
-        return _mesh((data, model, residue), ("data", "model", "residue"), device_type)
-    return _mesh((data, model), ("data", "model"), device_type)
+        return make_mesh((data, model, residue), ("data", "model", "residue"), device_type)
+    return make_mesh((data, model), ("data", "model"), device_type)

@@ -10,6 +10,7 @@ and `kernel` executions.  The kernel cases mirror phase 2 of
 and against the int8 kernels on the card.
 """
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +32,7 @@ import repro_torch.core.moduli as tmod
 import repro_torch.kernels.fp8_mod_gemm as tfp8
 import repro_torch.kernels.ops as tops
 from repro_torch import linalg as tl
+from repro_torch.kernels.common import on_card
 from repro_torch.interop import policy_from_fields, prepared_from_numpy, tensors_from_numpy
 from repro_torch.kernels.int8_mod_gemm import int8_mod_gemm_plain
 from repro_torch.kernels.karatsuba_fused import karatsuba_mod_gemm_plain
@@ -150,12 +152,20 @@ def test_fp8_wrappers_reject_oversized_k_bad_shapes_and_other_devices():
         tfp8.fp8_karatsuba_mod_gemm_batched(a, a, b, b[:1], moduli=ctx.moduli)
     with pytest.raises(ValueError, match="shape mismatch"):
         tfp8.fp8_mod_gemm_batched(a, b, moduli=ctx.moduli[:1])
-    # neither the card nor the CPU: no kernel and no plain version
+    # meta tensors take the card's branch up to its launch (the dry run's
+    # shapes): meta outputs, no launch counted; a mix of devices and any
+    # device with neither a kernel nor a plain version raise
     meta = (a.to("meta"), b.to("meta"))
+    before = (tfp8.fp8_mod_gemm_batched.launches, tfp8.fp8_karatsuba_mod_gemm_batched.launches)
+    out = tfp8.fp8_mod_gemm_batched(*meta, moduli=ctx.moduli)
+    assert out.is_meta and out.dtype == torch.int8 and tuple(out.shape) == (2, 8, 8)
+    cr, ci = tfp8.fp8_karatsuba_mod_gemm_batched(*meta[:1], *meta[:1], *meta[1:], *meta[1:], moduli=ctx.moduli)
+    assert cr.is_meta and ci.is_meta and tuple(ci.shape) == (2, 8, 8)
+    assert (tfp8.fp8_mod_gemm_batched.launches, tfp8.fp8_karatsuba_mod_gemm_batched.launches) == before
+    with pytest.raises(ValueError, match="devices"):
+        tfp8.fp8_mod_gemm_batched(a, meta[1], moduli=ctx.moduli)
     with pytest.raises(ValueError, match="no kernel or plain version"):
-        tfp8.fp8_mod_gemm_batched(*meta, moduli=ctx.moduli)
-    with pytest.raises(ValueError, match="no kernel or plain version"):
-        tfp8.fp8_karatsuba_mod_gemm_batched(*meta[:1], *meta[:1], *meta[1:], *meta[1:], moduli=ctx.moduli)
+        on_card(types.SimpleNamespace(device=torch.device("xpu")))
 
 
 def test_fp8_chunked_matches_unchunked(rng, monkeypatch):

@@ -420,7 +420,15 @@ def _check_structure(cal):
 def test_calibrate_smoke_on_cpu_is_structurally_valid(tmp_path):
     from repro_torch.tune.calibrate import calibrate
 
-    cal = calibrate(smoke=True, device="cpu")
+    # one intra-op thread: under the suite's xdist workers torch's thread a
+    # core makes each timed probe wait at its barriers for threads the other
+    # workers keep busy (231 s so, against 5 s alone)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cal = calibrate(smoke=True, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
     _check_structure(cal)
     path = save_calibration(cal, str(tmp_path / "cal.json"))
     assert load_calibration(path) == cal
@@ -428,7 +436,8 @@ def test_calibrate_smoke_on_cpu_is_structurally_valid(tmp_path):
 
 def test_tune_cli_smoke_on_cpu(tmp_path):
     out = tmp_path / "cal.json"
-    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "HOME": str(tmp_path)}
+    # one intra-op thread, as in the test above (287 s in the suite so, 5 s alone)
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "HOME": str(tmp_path), "OMP_NUM_THREADS": "1"}
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.tune", "--smoke", "--device", "cpu", "--out", str(out)],
         capture_output=True, text=True, env=env, timeout=600, cwd=ROOT)
