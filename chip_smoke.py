@@ -2664,7 +2664,8 @@ TRAIN_GRAD_TOL = 1e-3
 # saturate, 1 - a^2 lies near float32's rounding and the derivative of
 # sqrt(max(1 - a^2, 1e-12)) amplifies the card's last-ulp differences
 # (measured 3.3e-3 on the H100; on the CPU the port against the reference
-# reads 2.3e-3)
+# reads 3.5e-3 on tests/test_torch_train_archs.py's fixed draw, and the
+# reference's jitted step against its own op-by-op step 1.8e-3)
 TRAIN_GRAD_TOL_OF = {"recurrentgemma-2b": 1e-2}
 TRAIN_COMPLEX_RTOL = 1e-3  # the reference's test_model_with_complex_policy_trains
 TRAIN_EXECUTIONS = ("kernel", "fused", "fp8", "per_modulus_kernel")  # 9a's deterministic grads

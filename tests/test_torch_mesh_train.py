@@ -6,7 +6,9 @@ The contract: a (D, M[, R]) mesh step with ``grad_accum=1`` is bitwise
 the port's one-process step with ``grad_accum=D``, every rank's gathered
 params, optimizer state and loss; a sharded policy on the mesh is
 bitwise `kernel` on one process.  Two configs from the same numpy
-weights: the tiny `ModelConfig` of `tests/test_distributed.py` on
+weights, both drawn by the port's crc32 init, the same in every process
+(`test_torch_train.fixed_draw` for mamba2-130m): the tiny `ModelConfig`
+of `tests/test_distributed.py` on
 `GemmPolicy(backend="ozaki2_f32", execution="kernel")` and reduced
 mamba2-130m (native linears), on meshes (2, 1), (1, 2), (2, 2) and, with
 every linear sharded, (2, 1, 2).  The one-process step is held against
@@ -44,19 +46,18 @@ from repro.distributed.sharding import pspec_for_meta as j_pspec_for_meta
 from repro.models import Model as JModel
 from repro.models.params import _map_like as j_map_like
 from repro.optim import AdamWConfig as JAdamWConfig
-from repro.train.step import init_state as j_init_state
 from repro.train.step import make_train_step as j_make_train_step
 import torch_ranks
 from repro_torch import GemmPolicy
 from repro_torch.data import DataConfig
-from repro_torch.interop import model_config_from_fields, params_from_numpy
+from repro_torch.interop import params_from_numpy
 from repro_torch.models import Model, ModelConfig
 from repro_torch.optim import AdamWConfig
 from repro_torch.train import TrainLoopConfig, make_train_step, train_loop
 from repro_torch.train.step import init_state
 from repro_torch.tree import tree_leaves
 from test_torch_param_sharding import _bitwise, _block, _on_mesh
-from test_torch_train import LOSS_RTOL, NORM_RTOL, _hold_moments
+from test_torch_train import LOSS_RTOL, NORM_RTOL, _hold_moments, fixed_draw
 
 B, S = 8, 16
 OPT = dict(lr=1e-3)
@@ -88,8 +89,10 @@ def one_thread_deterministic():
 
 
 class _Case:
-    """One config: the reference's init (weights and optimizer state as
-    numpy), the tokens, and the port's one-process steps by grad_accum."""
+    """One config: the weights and optimizer state as numpy (tiny: the
+    port's init; mamba2-130m: `test_torch_train.fixed_draw`, the port's
+    crc32 init and the reference's `adamw_init`), the tokens, and the
+    port's one-process steps by grad_accum."""
 
     def __init__(self, name):
         if name == "tiny":
@@ -102,8 +105,7 @@ class _Case:
         else:
             jcfg = dataclasses.replace(j_get_reduced("mamba2-130m"), dtype="float32")
             jmodel, jopt = JModel(jcfg), JAdamWConfig(**OPT)
-            jparams, jstate = j_init_state(jmodel, jopt, jax.random.PRNGKey(0))
-            self.cfg = model_config_from_fields(dataclasses.asdict(jcfg))
+            self.cfg, jparams, jstate = fixed_draw(jcfg, jopt)
             self.params = jax.tree.map(np.asarray, jparams)
             self.state = jax.tree.map(np.asarray, jstate)
             self.reference = (jmodel, jopt, jparams, jstate)

@@ -2,7 +2,8 @@
 weights and the serve CLI, on the CPU.
 
 * Greedy tokens against the reference's `ServeEngine` (reduced
-  qwen2.5-32b, float32, the reference's weights carried across): equal at
+  qwen2.5-32b, float32, the port's crc32 init from generator seed 0
+  carried across, the same weights in every process): equal at
   every step whose context is still the same and where the reference's
   top-2 margin exceeds 2e-4 x max|logits|, twice the logit tolerance of
   `tests/test_torch_models.py` (both top logits may move by it).
@@ -50,7 +51,9 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 def test_greedy_tokens_match_reference_engine(rng):
     jcfg = dataclasses.replace(j_get_reduced("qwen2.5-32b"), dtype="float32")
     jmodel = JModel(jcfg)
-    jparams = jmodel.init(jax.random.PRNGKey(0))
+    cfg = model_config_from_fields(dataclasses.asdict(jcfg))
+    jparams = jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+                           Model(cfg).init(torch.Generator().manual_seed(0), device="cpu"))
     tokens = rng.integers(0, jcfg.vocab, (B, PROMPT)).astype(np.int32)
     jeng = JServeEngine(jmodel, jparams, cache_len=PROMPT + NEW, batch_size=B)
     want = np.asarray(jeng.generate({"tokens": jnp.asarray(tokens)}, NEW))
@@ -62,7 +65,6 @@ def test_greedy_tokens_match_reference_engine(rng):
         logits, cache = jeng._decode(jeng.params, jnp.asarray(want[:, i: i + 1]), cache, jnp.int32(PROMPT + i))
         ref_logits.append(np.asarray(logits[:, -1]))
 
-    cfg = model_config_from_fields(dataclasses.asdict(jcfg))
     eng = ServeEngine(Model(cfg), params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu"),
                       cache_len=PROMPT + NEW, batch_size=B, device="cpu")
     got, got_logits = eng.generate({"tokens": torch.from_numpy(tokens)}, NEW, return_logits=True)

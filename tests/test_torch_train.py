@@ -9,10 +9,14 @@ reduced mamba2-130m with every linear on
 kernels in interpret mode, the port's plain versions), both float32,
 B = 8, S = 32 from the suite's seed.  Tracing and compiling the
 interpreted kernels takes most of that file's time, so it runs on its
-own xdist worker (``--dist loadfile``).  The reference draws the weights
-(its init differs from process to process, ROADMAP queue 3) and both
-packages start from them and its optimizer state
-(`interop.params_from_numpy`).
+own xdist worker (``--dist loadfile``).  Both packages start from one
+fixed weight draw, `fixed_draw`: the port's init (per-leaf seeds from
+`zlib.crc32` of the path, generator seed 0) handed to the reference as
+jax arrays, and the reference's `adamw_init` of them, which the port
+takes by `interop.params_from_numpy` (the reference's own init seeds each
+leaf by Python's salted `hash`, so it draws other weights in every
+process).  Every arch's step is held the same way in
+`tests/test_torch_train_archs.py`.
 
 Tolerances, and why:
 * the loss within 1e-5 relative (as `tests/test_torch_models.py`): the
@@ -51,13 +55,14 @@ from repro.core.policy import GemmPolicy as JPolicy
 from repro.data import DataConfig as JDataConfig
 from repro.models import Model as JModel
 from repro.optim import AdamWConfig as JAdamWConfig
+from repro.optim import adamw_init as j_adamw_init
 from repro.optim import adamw_update as j_adamw_update
 from repro.optim.adamw import global_norm as j_global_norm
 from repro.train import TrainLoopConfig as JTrainLoopConfig
 from repro.train import train_loop as j_train_loop
-from repro.train.step import init_state as j_init_state
 from repro.train.step import make_train_step as j_make_train_step
 import repro_torch.optim.adamw as tadamw
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_reduced
 from repro_torch.core.policy import GemmPolicy
 from repro_torch.data import DataConfig, SyntheticLM
@@ -79,16 +84,28 @@ CONFIGS = {
 }
 
 
+def fixed_draw(jcfg, jopt):
+    """The weights every train parity test starts from: the port's
+    float32 init of `jcfg` (per-leaf seeds from `zlib.crc32` of the path,
+    generator seed 0: the same arrays in every process) as the reference's
+    jax arrays, and the reference's `adamw_init` of them.  Returns (the
+    port's config, params, optimizer state)."""
+    cfg = model_config_from_fields(dataclasses.asdict(jcfg))
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    jparams = jax.tree.map(lambda t: jnp.asarray(t.numpy()), params)
+    return cfg, jparams, j_adamw_init(jparams, jopt)
+
+
 class _Reference:
-    """One config's reference run: its init, its jitted step on one batch
-    (grad_accum 1, and 4 where asked) and the port's model."""
+    """One config's run: the fixed draw, the reference's jitted step on one
+    batch (grad_accum 1, and 4 where asked) and the port's model."""
 
     def __init__(self, name, accums):
         arch, over, pol = CONFIGS[name]
         jcfg = dataclasses.replace(j_get_reduced(arch), dtype="float32", gemm_policy=pol, **over)
         jmodel = JModel(jcfg)
         jopt = JAdamWConfig(**OPT)
-        jparams, jstate = j_init_state(jmodel, jopt, jax.random.PRNGKey(0))
+        cfg, jparams, jstate = fixed_draw(jcfg, jopt)
         self.tokens = np.random.default_rng(SEED).integers(0, jcfg.vocab, (B, S)).astype(np.int32)
         self.params_np = jax.tree.map(np.asarray, jparams)
         self.state_np = jax.tree.map(np.asarray, jstate)
@@ -98,7 +115,7 @@ class _Reference:
             p, o, met = step(jparams, jstate, {"tokens": jnp.asarray(self.tokens)})
             self.out[ga] = (jax.tree.map(np.asarray, p), jax.tree.map(np.asarray, o),
                             {k: np.asarray(v) for k, v in met.items()})
-        self.model = Model(model_config_from_fields(dataclasses.asdict(jcfg)))
+        self.model = Model(cfg)
 
     def port_state(self):
         return params_from_numpy(self.params_np, "cpu"), params_from_numpy(self.state_np, "cpu")
@@ -143,15 +160,15 @@ def deterministic():
     torch.use_deterministic_algorithms(False)
 
 
-def _hold_moments(got_state, want_state, what):
-    """Each leaf of the first moment (the scaled grads) within GRAD_TOL x
-    its max|m|; returns the worst ratio."""
+def _hold_moments(got_state, want_state, what, tol=GRAD_TOL):
+    """Each leaf of the first moment (the scaled grads) within `tol` x its
+    max|m|; returns the worst ratio."""
     worst = 0.0
     for a, b in zip(jax.tree.leaves(want_state["m"]), tree_leaves(got_state["m"])):
         scale = float(np.abs(a).max())
         err = float(np.abs(b.numpy().astype(np.float64) - a).max())
         assert np.isfinite(b.numpy()).all(), what
-        assert err <= GRAD_TOL * scale, f"{what}: m leaf {a.shape}: {err:.3e} > {GRAD_TOL} x {scale:.3e}"
+        assert err <= tol * scale, f"{what}: m leaf {a.shape}: {err:.3e} > {tol} x {scale:.3e}"
         worst = max(worst, err / scale if scale else 0.0)
     return worst
 
@@ -263,14 +280,20 @@ def test_cross_package_resume(tmp_path, deterministic):
     """The reference's `train_loop` (reduced mamba2-130m, float32) writes
     step_4; the port resumes it on the CPU for 2 steps, as the reference
     does from the same files (losses within 1e-5 relative).  The port
-    resuming its own step_4 is bitwise the uninterrupted port run."""
+    resuming its own step_4 is bitwise the uninterrupted port run.  The
+    reference's loop starts from the fixed draw, which the port writes as
+    a step_0 checkpoint for it to resume (its own init draws other weights
+    in every process)."""
     jcfg = dataclasses.replace(j_get_reduced("mamba2-130m"), dtype="float32")
     jmodel = JModel(jcfg)
-    model = Model(model_config_from_fields(dataclasses.asdict(jcfg)))
+    cfg, jparams, jstate = fixed_draw(jcfg, JAdamWConfig())
+    model = Model(cfg)
     jdata = JDataConfig(vocab=jcfg.vocab, seq_len=32, global_batch=4, seed=1)
     data = DataConfig(vocab=jcfg.vocab, seq_len=32, global_batch=4, seed=1)
     quiet = dict(log=lambda *_: None)
     ref_dir, port_dir = tmp_path / "ref", tmp_path / "port"
+    Checkpointer(str(ref_dir)).save(0, params_from_numpy(jax.tree.map(np.asarray, {"params": jparams, "opt": jstate}),
+                                                         "cpu"))
     j_train_loop(jmodel, jdata, JTrainLoopConfig(steps=4, ckpt_dir=str(ref_dir), async_ckpt=False, **RESUME_LOOP),
                  JAdamWConfig(), **quiet)
     shutil.copytree(ref_dir, port_dir)
